@@ -5,14 +5,15 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the four datapath kernels from ``src/repro_torch/kernels/csrc``
-into ``build/kernels/`` and then runs, in order:
+It builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs, in
+order:
 
-1. **parity** -- each kernel against its plain PyTorch version on the card,
-   on seeded cases at the deployment shapes and at small ragged ones, with
-   every optional operand on and off. Outputs must be bit-identical
-   (``torch.equal``, the whole pool after the in-place anchor included) and
-   the pool tensor must keep its storage.
+1. **parity** -- each datapath kernel against its plain PyTorch version on
+   the card, on seeded cases at the deployment shapes and at small ragged
+   ones, with every optional operand on and off. Outputs must be
+   bit-identical (``torch.equal``, the whole pool after the in-place anchor
+   included) and the pool tensor must keep its storage.
 2. **e2e plaintext** -- a policy-routed ``ProxyRuntime(batched=True)`` of 64
    channels x 16 messages (256 metadata tokens, 4096-16384 payload tokens)
    over a ``LibraStack(n_shards=4, pages_per_shard=8192, page_size=1024)``:
@@ -23,16 +24,35 @@ into ``build/kernels/`` and then runs, in order:
    launched its kernels.
 3. **e2e hw-kTLS** -- the same with ``tls="hw"`` sockets (RX, TX and
    metadata keystreams through the kernels).
-4. **timing** -- each kernel, its plain version and (where one exists) a
-   single PyTorch library call at the deployment shapes: CUDA events around
-   each launch, L2 flushed before it, median of 30 launches; the bound is
-   the larger of the bytes the function must move over 3.35 TB/s and its
-   int32 operations over the card's int32 peak.
+4. **trace** -- the device's busy share of one plaintext run per device
+   path (``torch.profiler``).
+5. **attn_parity** -- the two attention kernels against their plain
+   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 and 3, head
+   dims 16 to 128, ``-1`` table slots, windows, lengths that are no
+   multiple of a tile, and the serving shapes of phase 6.
+6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
+   and depth (3.84 B float32 parameters from a fixed seed on the card): 16
+   requests of 1024 tokens (8-token header) in two waves of 8, 32 new
+   tokens each, run once through the kernels (``attn_impl='auto'``) and
+   once through their plain versions (``'ref'``) on the same parameters.
+   ``EngineStats``, ``CopyCounters`` and the output tokens must be
+   identical (a token may differ only where the plain run's top-2 logit
+   margin is below 1e-3 of the logits' spread), every page must come
+   back, and each kernel must have launched. Prints tokens/s, p99 latency,
+   time to first token, peak device memory, launches, and a profiler split
+   of one decode step.
+7. **timing** -- each kernel, its plain version and (where one exists) a
+   single PyTorch library call at the main path's shapes: CUDA events
+   around each launch, L2 flushed before it, median of 30 launches; the
+   bound is the larger of the bytes the function must move over 3.35 TB/s
+   and its operations over the card's peak for their type (int32 for the
+   datapath, float32 for attention).
 
-Each phase prints one JSON line. Then come the card's name and power limit
-(``nvidia-smi``), the ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
-last line; with no CUDA device, or outside a checkout, it fails at once.
+Float32 products run in full float32 (TF32 off). Each phase prints one JSON
+line. Then come the card's name and power limit (``nvidia-smi``), the
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before the last line; with no CUDA device, or outside
+a checkout, it fails at once.
 """
 from __future__ import annotations
 
@@ -54,6 +74,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 # are of that type. The peak is this times the SM count times the card's
 # maximum SM clock, both read from the card.
 INT32_OPS_PER_SM_CLOCK = 64
+# float32 FMA: 128 lanes per SM, 2 operations each, per clock (the same
+# table); the attention kernels' operations are of that type.
+FP32_OPS_PER_SM_CLOCK = 256
+ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
 TIMED_RUNS = 30
 SPIN_CYCLES = 1_000_000     # ~0.5 ms at H100 clocks: longer than an enqueue
 
@@ -62,7 +86,11 @@ KERNELS = {
     "selective_gather": "src/repro/kernels/selective_copy.py:364",
     "policy_match": "src/repro/kernels/selective_copy.py:265",
     "fused_round": "src/repro/kernels/selective_copy.py:554",
+    "paged_attention": "src/repro/kernels/paged_attention.py:84",
+    "flash_attention": "src/repro/kernels/flash_attention.py:82",
 }
+DATAPATH = ("selective_copy", "selective_gather", "policy_match",
+            "fused_round")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +126,34 @@ class Size:
 
 
 SMALL = dict(b=5, page=8, pps=3, meta_max=5)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSize:
+    """The serving run (see PERF.md, Cells): phi4-mini-3.8b at full width
+    and depth, the engine's default page size."""
+    arch: str = "phi4-mini-3.8b"
+    seed: int = 0
+    requests: int = 16
+    max_batch: int = 8
+    prompt: int = 1024
+    header: int = 8
+    gen: int = 32
+    page: int = 16
+    #: decode context of the paged_attention timing: the middle of a wave
+    timing_context: int = 1040
+
+    @property
+    def max_len(self) -> int:        # launch/serve.py: prompt + gen + 8
+        return self.prompt + self.gen + 8
+
+    @property
+    def pps(self) -> int:            # LibraEngine: max_len // page + 2
+        return self.max_len // self.page + 2
+
+    @property
+    def pool_pages(self) -> int:     # LibraEngine: max_batch * pps + 4
+        return self.max_batch * self.pps + 4
 
 
 class SmokeError(Exception):
@@ -284,7 +340,7 @@ def parity(size: Size, dev, torch, np, ops, tt):
     emit({"phase": "parity", "cases": len(results),
           "all_equal": all(r["equal"] for r in results),
           "max_abs_err": {k: max(r["max_abs_err"] for r in results
-                                 if r["kernel"] == k) for k in KERNELS}})
+                                 if r["kernel"] == k) for k in DATAPATH}})
     return results
 
 
@@ -366,7 +422,7 @@ def e2e(size: Size, tls, dev, torch, np, core, kern):
                               ("selective_copy", "policy_match")),
               "auto": (("selective_copy", "policy_match", "selective_gather"),
                        ("fused_round",)),
-              "host": ((), tuple(KERNELS))}
+              "host": ((), DATAPATH)}
     # device paths run twice, in turns (fused, auto, host, auto, fused), so
     # process warm-up and drift do not land on one path
     runs, wires = [], []
@@ -453,6 +509,316 @@ def trace(size: Size, dev, torch, np, core):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-6: attention parity and serving
+# ---------------------------------------------------------------------------
+
+def paged_case(gen, dev, torch, *, b, hq, hkv, hd, page, pps, pool_pages,
+               seq_lens, gaps=False):
+    """(q, pool, tables, page_pos, seq_lens) for paged_attention: row i
+    owns distinct pages covering ``seq_lens[i] + 1`` keys, in order;
+    ``gaps`` turns every third slot into ``-1`` and adds, after a row's
+    last page, a page whose keys all lie past its ``seq_len``."""
+    q = torch.randn((b, hq, hd), generator=gen, device=dev)
+    pool = torch.randn((pool_pages, page, 2, hkv, hd), generator=gen,
+                       device=dev)
+    tables = torch.full((b, pps), -1, dtype=torch.int32)
+    page_pos = torch.full((b, pps), -(1 << 20), dtype=torch.int32)
+    nxt = 0
+    for i, sl in enumerate(seq_lens):
+        n = sl // page + 1
+        for j in range(n):
+            tables[i, j] = nxt % pool_pages
+            page_pos[i, j] = j * page
+            nxt += 1
+        if gaps:
+            tables[i, 1:n:3] = -1
+            if n < pps:
+                tables[i, n] = nxt % pool_pages
+                page_pos[i, n] = (sl // page + 2) * page
+                nxt += 1
+    return (q, pool, tables.to(dev), page_pos.to(dev),
+            torch.tensor(seq_lens, dtype=torch.int32, device=dev))
+
+
+def serve_paged_case(ss: ServeSize, cfg, gen, dev, torch):
+    """The decode step of a full wave: q [max_batch, Hq, hd] over one
+    layer's pool view at ``timing_context`` keys per row."""
+    return paged_case(gen, dev, torch, b=ss.max_batch, hq=cfg.num_heads,
+                      hkv=cfg.num_kv_heads, hd=cfg.head_dim, page=ss.page,
+                      pps=ss.pps, pool_pages=ss.pool_pages,
+                      seq_lens=[ss.timing_context] * ss.max_batch)
+
+
+def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd):
+    return (torch.randn((b, hq, s, hd), generator=gen, device=dev),
+            torch.randn((b, hkv, s, hd), generator=gen, device=dev),
+            torch.randn((b, hkv, s, hd), generator=gen, device=dev))
+
+
+def attn_parity(ss: ServeSize, cfg, dev, torch, ops):
+    """Both attention kernels against their plain versions on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    results = []
+
+    def record(kernel, label, outs_k, outs_r):
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_r))
+        ok = all(torch.allclose(a, b, **ATTN_TOL)
+                 for a, b in zip(outs_k, outs_r))
+        results.append(dict(kernel=kernel, case=label, close=ok,
+                            max_abs_err=err))
+        check(ok, f"{kernel} [{label}] differs from its plain version "
+                  f"(max abs err {err})")
+
+    full = dict(b=ss.max_batch, hq=cfg.num_heads, hkv=cfg.num_kv_heads,
+                s=ss.prompt, hd=cfg.head_dim)
+    flash = [("g1-hd64", dict(b=2, hq=4, hkv=4, s=256, hd=64), True, 0),
+             ("g3-hd128-tail", dict(b=2, hq=6, hkv=2, s=200, hd=128), True,
+              0),
+             ("g3-hd64-window", dict(b=1, hq=6, hkv=2, s=300, hd=64), True,
+              100),
+             ("g1-hd128-noncausal", dict(b=1, hq=2, hkv=2, s=130, hd=128),
+              False, 0),
+             ("g2-hd16-tail", dict(b=2, hq=4, hkv=2, s=40, hd=16), True, 0),
+             ("g3-hd96-tail", dict(b=1, hq=3, hkv=1, s=70, hd=96), True, 0),
+             ("serve", full, True, 0)]
+    for label, shape, causal, window in flash:
+        q, k, v = flash_case(gen, dev, torch, **shape)
+        outs = [ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    impl=impl) for impl in ("cuda", "ref")]
+        record("flash_attention", label, outs[:1], outs[1:])
+    paged = [("g1-hd64", dict(b=4, hq=8, hkv=8, hd=64, page=16, pps=8,
+                              pool_pages=40, seq_lens=[5, 60, 100, 127]),
+              False, 0),
+             ("g3-hd128-gaps-window", dict(b=3, hq=6, hkv=2, hd=128, page=16,
+                                           pps=10, pool_pages=40,
+                                           seq_lens=[33, 120, 0]), True, 40),
+             ("g3-hd128-gaps", dict(b=3, hq=6, hkv=2, hd=128, page=16,
+                                    pps=10, pool_pages=40,
+                                    seq_lens=[33, 120, 0]), True, 0),
+             ("g2-hd16", dict(b=2, hq=4, hkv=2, hd=16, page=8, pps=5,
+                              pool_pages=12, seq_lens=[17, 30]), False, 0)]
+    for label, shape, gaps, window in paged:
+        case = paged_case(gen, dev, torch, gaps=gaps, **shape)
+        outs = [ops.paged_attention(*case, window=window, impl=impl)
+                for impl in ("cuda", "ref")]
+        record("paged_attention", label, outs[0], outs[1])
+    case = serve_paged_case(ss, cfg, gen, dev, torch)
+    outs = [ops.paged_attention(*case, impl=impl) for impl in ("cuda", "ref")]
+    record("paged_attention", "serve", outs[0], outs[1])
+    emit({"phase": "attn_parity", "cases": len(results),
+          "all_close": all(r["close"] for r in results), "tol": ATTN_TOL,
+          "max_abs_err": {k: max(r["max_abs_err"] for r in results
+                                 if r["kernel"] == k)
+                          for k in ("paged_attention", "flash_attention")}})
+    return results
+
+
+class LogitMargins:
+    """Top-2 margin and spread (max - min) of every row of every logits
+    call of one engine run, and which call and row produced each token."""
+
+    def __init__(self, model):
+        self.calls = []           # [(margins [rows], spreads [rows])]
+        self.where = {}           # (rid, token index) -> (call, row)
+        inner = model.logits
+
+        def logits(params, hidden):
+            out = inner(params, hidden)
+            top = out.topk(2, dim=-1).values
+            self.calls.append(((top[:, 0] - top[:, 1]).tolist(),
+                               (out.amax(-1) - out.amin(-1)).tolist()))
+            return out
+        model.logits = logits
+
+    def step(self, eng, reqs):
+        """``eng.step()``, noting where each new token came from: the
+        prefill call (rows in admission order), then the decode call (rows
+        are slots)."""
+        waiting = list(eng.waiting)
+        lens = {r.rid: len(r.output) for r in reqs}
+        first = len(self.calls)
+        eng.step()
+        still = {r.rid for r in eng.waiting}
+        admitted = [r.rid for r in waiting if r.rid not in still]
+        for row, rid in enumerate(admitted):
+            self.where[(rid, 0)] = (first, row)
+        decode = first + (1 if admitted else 0)
+        if len(self.calls) > decode:
+            for r in reqs:
+                had = lens[r.rid] + (1 if r.rid in admitted else 0)
+                if len(r.output) > had:
+                    self.where[(r.rid, had)] = (decode, r.slot)
+
+    def margin(self, rid, index):
+        call, row = self.where[(rid, index)]
+        margins, spreads = self.calls[call]
+        return margins[row], spreads[row]
+
+
+def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
+              margins=None):
+    """One engine run over ``prompts``; returns (engine, results)."""
+    from repro_torch.core.parser import TokenStreamParser
+    from repro_torch.serving.engine import LibraEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = LibraEngine(model, params, max_batch=ss.max_batch,
+                      max_len=ss.max_len, page_size=ss.page,
+                      parser=TokenStreamParser(header_len=ss.header),
+                      device=dev)
+    check(eng.pool.alloc.total_pages == ss.pool_pages and eng.pps == ss.pps,
+          "engine geometry differs from the serve size")
+    reqs = [eng.submit(p, max_new_tokens=ss.gen) for p in prompts]
+    kattn.reset_launches()
+    step_s = {"prefill": [], "decode": []}   # a step ends on a token download
+    t0 = time.perf_counter()
+    while eng.waiting or eng.active:
+        prefills = eng.stats.prefills
+        ts = time.perf_counter()
+        if margins is None:
+            eng.step()
+        else:
+            margins.step(eng, reqs)
+        step_s["prefill" if eng.stats.prefills > prefills else "decode"
+               ].append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kattn.LAUNCHES)
+    alloc = eng.pool.alloc
+    check(alloc.free_pages == alloc.total_pages - 1 and
+          len(eng.pool.registry) == 0,
+          f"{model.attn_impl}: pages leaked ({alloc.free_pages} of "
+          f"{alloc.total_pages} free, the parking page held)")
+    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    out = dict(attn_impl=model.attn_impl, seconds=dt,
+               tokens=eng.throughput_tokens(),
+               tokens_per_s=eng.throughput_tokens() / dt,
+               p99_latency_ms=eng.p99_latency() * 1e3,
+               ttft_s={"first": ttft[0], "median": statistics.median(ttft),
+                       "last": ttft[-1]},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               prefill_step_s=step_s["prefill"],
+               decode_step_ms={k: f(step_s["decode"]) * 1e3 for k, f in (
+                   ("min", min), ("median", statistics.median),
+                   ("max", max))},
+               launches=launches, steps=eng.stats.steps,
+               stats=dataclasses.asdict(eng.stats),
+               counters=dataclasses.asdict(eng.stack.counters),
+               outputs={r.rid: list(r.output) for r in reqs})
+    return eng, out
+
+
+def decode_split(eng, prompts, ss: ServeSize, torch):
+    """Profiler split of one decode step of a full batch: device time of
+    matmuls, the attention kernel, the KV write and everything else, and
+    the host gaps (wall minus device time; one stream, no overlap)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:ss.max_batch]:
+        eng.submit(p, max_new_tokens=3)
+    eng.step()                                 # prefill + first decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()                             # a decode step, nothing else
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run()
+    kinds = {"attention": re.compile(r"paged_attention"),
+             "matmul": re.compile(r"gemm|gemv|xmma|cutlass|splitK|dot_kernel",
+                                  re.I),
+             "kv_write": re.compile(r"index_put"),
+             "copies": re.compile(r"memcpy|memset", re.I)}
+    split = {k: 0.0 for k in (*kinds, "other")}
+    top = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = e.device_time_total
+        kind = next((k for k, rx in kinds.items() if rx.search(e.key)),
+                    "other")
+        split[kind] += us / 1e3
+        top[e.key[:70]] = us / 1e3
+    device_ms = sum(split.values())
+    check(split["attention"] > 0, "the profiled step ran no paged_attention")
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "host_gap_ms": wall * 1e3 - device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "device_ms_by_kind": split,
+            "top_device_ms": dict(sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:10])}
+
+
+def serve(ss: ServeSize, dev, torch, np, kattn):
+    """phi4-mini-3.8b under LibraEngine, kernels against plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(ss.arch)
+    models = {impl: build_model(cfg, page_size=ss.page, attn_impl=impl)
+              for impl in ("auto", "ref")}
+    t0 = time.perf_counter()
+    params = models["auto"].init_params(ss.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(ss.seed)
+    prompts = [rng.integers(1, cfg.vocab_size - 1, ss.prompt)
+               for _ in range(ss.requests)]
+    margins = LogitMargins(models["ref"])
+    eng, kern_run = serve_run(ss, models["auto"], params, prompts, dev,
+                              torch, kattn)
+    split = decode_split(eng, prompts, ss, torch)
+    del eng
+    _eng, ref_run = serve_run(ss, models["ref"], params, prompts, dev, torch,
+                              kattn, margins)
+    del _eng
+    check(kern_run["stats"] == ref_run["stats"],
+          "EngineStats differ between the kernel and plain runs")
+    check(kern_run["counters"] == ref_run["counters"],
+          "CopyCounters differ between the kernel and plain runs")
+    diverged = []
+    for rid, want in ref_run["outputs"].items():
+        got = kern_run["outputs"][rid]
+        check(len(got) == len(want) == ss.gen, f"request {rid}: wrong length")
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        if first is None:
+            continue
+        m, spread = margins.margin(rid, first)
+        diverged.append(dict(rid=rid, token=first, margin=m, spread=spread))
+        check(m < 1e-3 * spread,
+              f"request {rid} token {first}: kernel {got[first]} vs plain "
+              f"{want[first]}, plain top-2 margin {m} is not below 1e-3 of "
+              f"the spread {spread}")
+    for name in kattn.LAUNCHES:
+        check(kern_run["launches"][name] > 0,
+              f"{name} never launched in the serve run")
+        check(ref_run["launches"][name] == 0,
+              f"{name} launched in the plain run")
+    keep = ("seconds", "tokens", "tokens_per_s", "p99_latency_ms", "ttft_s",
+            "peak_mem_gb", "prefill_step_s", "decode_step_ms",
+            "launches", "steps")
+    emit({"phase": "serve", "arch": ss.arch, "params": cfg.param_count(),
+          "param_init_s": init_s, "requests": ss.requests,
+          "prompt": ss.prompt, "gen": ss.gen, "max_batch": ss.max_batch,
+          "page": ss.page, "pool_pages": ss.pool_pages,
+          "identical_tokens": not diverged, "diverged": diverged,
+          "stats": kern_run["stats"], "counters": kern_run["counters"],
+          "kernels": {k: kern_run[k] for k in keep},
+          "plain": {k: ref_run[k] for k in keep},
+          "decode_step_split": split})
+    del params
+    torch.cuda.empty_cache()
+    return kern_run
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
 
@@ -511,14 +877,15 @@ def policy_refs(off, ml, m, plen, w, np) -> int:
     return n
 
 
-def int32_ops_per_s(torch) -> float:
-    """Peak int32 operations per second of the current card."""
+def peak_ops_per_s(torch, per_sm_clock: int) -> float:
+    """Peak operations per second of the current card for an instruction
+    type that issues ``per_sm_clock`` results per SM per clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip()
-    return sms * INT32_OPS_PER_SM_CLOCK * float(mhz) * 1e6
+    return sms * per_sm_clock * float(mhz) * 1e6
 
 
 def bound(bytes_: int, ops_: int, ops_per_s: float):
@@ -528,16 +895,17 @@ def bound(bytes_: int, ops_: int, ops_per_s: float):
             bytes_)
 
 
-def timing(size: Size, dev, torch, np, ops, tt):
+def timing(size: Size, ss: ServeSize, dev, torch, np, ops, tt):
     rng = np.random.default_rng(29)
     big = dict(b=size.channels, page=size.page, pps=size.pps,
                meta_max=size.meta_max)
     page, mm = size.page, size.meta_max
-    rate = int32_ops_per_s(torch)
+    rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
+    frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
     out = {}
 
-    def entry(name, variant, k_fn, r_fn, bnd, lib_fn=None):
-        b_ms, b_by, b_bytes = bound(*bnd, rate)
+    def entry(name, variant, k_fn, r_fn, bnd, lib_fn=None, ops_rate=rate):
+        b_ms, b_by, b_bytes = bound(*bnd, ops_rate)
         row = dict(variant=variant, ms=time_ms(k_fn, torch),
                    plain_ms=time_ms(r_fn, torch, runs=20),
                    bound_ms=b_ms, bound_by=b_by, bytes=b_bytes,
@@ -631,9 +999,40 @@ def timing(size: Size, dev, torch, np, ops, tt):
                                       f["total_len"], f["pool"], f["tables"],
                                       meta_max=mm, impl="ref", **kw),
               (4 * (reads + writes), n_pay * (1 + 2 * crypto) + 3 * refs))
+    # paged_attention: one layer of a decode step of a full wave
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ss.arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    pc = serve_paged_case(ss, cfg, gen, dev, torch)
+    q, pool, tables, page_pos, sl = pc
+    pos = (page_pos[:, :, None].long()
+           + torch.arange(ss.page, device=dev)[None, None, :])
+    keys = int(((tables[:, :, None] >= 0) & (pos <= sl.long()[:, None, None]))
+               .sum())
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    reads = q.numel() + keys * 2 * hkv * hd + 2 * tables.numel() + sl.numel()
+    writes = q.numel() + 2 * q.shape[0] * hq
+    entry("paged_attention", f"B={q.shape[0]} ctx={ss.timing_context}",
+          lambda: ops.paged_attention(*pc, impl="cuda"),
+          lambda: ops.paged_attention(*pc, impl="ref"),
+          (4 * (reads + writes), 4 * hq * hd * keys), ops_rate=frate)
+    # flash_attention: one layer of a prefill of a full wave, causal
+    fq, fk, fv = flash_case(gen, dev, torch, b=ss.max_batch, hq=hq, hkv=hkv,
+                            s=ss.prompt, hd=hd)
+    pairs = ss.prompt * (ss.prompt + 1) // 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry("flash_attention", f"B={ss.max_batch} S={ss.prompt} causal",
+          lambda: ops.flash_attention(fq, fk, fv, impl="cuda"),
+          lambda: ops.flash_attention(fq, fk, fv, impl="ref"),
+          (4 * 2 * (fq.numel() + fk.numel()),
+           4 * ss.max_batch * hq * hd * pairs),
+          lib_fn=lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True),
+          ops_rate=frate)
     emit({"phase": "timing", "runs": TIMED_RUNS,
-          "int32_ops_per_s": rate, "hbm_bytes_per_s": HBM_BYTES_PER_S,
-          "kernels": out})
+          "int32_ops_per_s": rate, "fp32_ops_per_s": frate,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S, "kernels": out})
     return out
 
 
@@ -649,8 +1048,13 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SmokeError("no CUDA device: the smoke run needs one GPU")
+    # float32 products in full float32: the plain versions are references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     import repro_torch.core as core
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import selective_copy as kern
     from repro_torch.kernels import testing as tt
 
@@ -664,12 +1068,26 @@ def main() -> int:
           "sources": [str(p.relative_to(ROOT)) for p in _build.sources()],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    par = parity(size, dev, torch, np, ops, tt)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    par = timed("parity", parity, size, dev, torch, np, ops, tt)
     runs = {}
     for tls in (None, "hw"):
-        runs[tls or "plaintext"] = e2e(size, tls, dev, torch, np, core, kern)
-    trace(size, dev, torch, np, core)
-    tim = timing(size, dev, torch, np, ops, tt)
+        runs[tls or "plaintext"] = timed(f"e2e_{tls or 'plaintext'}", e2e,
+                                         size, tls, dev, torch, np, core, kern)
+    timed("trace", trace, size, dev, torch, np, core)
+    ss = ServeSize()
+    cfg = get_config(ss.arch)
+    apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)
+    srv = timed("serve", serve, ss, dev, torch, np, kattn)
+    tim = timed("timing", timing, size, ss, dev, torch, np, ops, tt)
+    emit({"phase_seconds": phase_s})
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
@@ -681,15 +1099,18 @@ def main() -> int:
     kernels = []
     for name, replaces in KERNELS.items():
         first = tim[name][0]
-        launches = sum(r["launches"][name] for rs in runs.values()
-                       for r in rs)
+        if name in DATAPATH:
+            launches = sum(r["launches"][name] for rs in runs.values()
+                           for r in rs)
+            err = max(r["max_abs_err"] for r in par if r["kernel"] == name)
+        else:
+            launches = srv["launches"][name]
+            err = max(r["max_abs_err"] for r in apar if r["kernel"] == name)
         check(launches > 0, f"{name} never launched on the main path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in par
-                               if r["kernel"] == name),
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "variant": first["variant"],

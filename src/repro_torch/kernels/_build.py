@@ -1,12 +1,12 @@
-"""Build and load the datapath kernels (``csrc/*.cu``) at first use.
+"""Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-One ``nvcc`` call compiles every source in ``csrc/`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``build/kernels/`` at the
-root of the checkout; :func:`load` opens it with ``ctypes``. The library's
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import time:
-the CPU tests import every module of the package on a machine with no
-``nvcc``.
+One ``nvcc`` per source in ``csrc/``, all started together, compiles each
+for ``sm_90a``; one more links the objects into one shared library with a
+plain C interface, under ``build/kernels/`` at the root of the checkout.
+:func:`load` opens it with ``ctypes``. The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused. Nothing here runs at import time: the CPU tests import every
+module of the package on a machine with no ``nvcc``.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int``, and returns ``cudaGetLastError()``.
@@ -21,12 +21,15 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry point -> argument types (pointers and the stream as c_void_p)
@@ -35,6 +38,8 @@ SIGNATURES = {
     "libra_selective_gather": [_P] * 5 + [_I] * 4 + [_P],
     "libra_policy_match": [_P] * 10 + [_I] * 5 + [_P],
     "libra_fused_round": [_P] * 15 + [_I] * 8 + [_P],
+    "libra_paged_attention": [_P] * 8 + [_I] * 7 + [_P],
+    "libra_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -56,7 +61,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,24 +70,40 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into one shared library (skipped when the
-    library for these sources already exists). Raises on a failed build."""
+    library for these sources already exists), one ``nvcc`` process per
+    source, all running at once. Raises on a failed build."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    if verbose:   # ptxas register / spill report
-        print(res.stdout + res.stderr, file=sys.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+            jobs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed, report = [], []
+        for name, _obj, proc in jobs:     # wait for every compiler
+            log, _ = proc.communicate()
+            report.append(f"== {name}\n{log}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = str(Path(tmp) / out.name)
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib,
+                              *(obj for _n, obj, _p in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        if verbose:   # ptxas register / spill report
+            print("".join(report), file=sys.stderr)
+        os.replace(lib, out)
     return out
 
 
@@ -106,3 +127,37 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = load().libra_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, dev, *args) -> None:
+    """Call the C entry point ``libra_<name>`` with ``args`` and ``dev``'s
+    current stream, and raise if the launch was refused."""
+    fn = getattr(load(), f"libra_{name}")
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, name)
+
+
+def check_tensor(name: str, t: Optional[torch.Tensor],
+                 shape: Optional[Sequence[int]] = None, *,
+                 dtype: torch.dtype,
+                 device: Optional[torch.device] = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and of
+    ``shape``, on ``device``, where given). ``None`` passes: an absent
+    optional operand."""
+    if t is None:
+        return
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got "
+                         f"one on {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")

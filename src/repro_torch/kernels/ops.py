@@ -6,8 +6,9 @@ mean the same in both:
 
 ========== ===============================================================
 ``'ref'``  the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
-``'cuda'`` the CUDA kernel (:mod:`repro_torch.kernels.selective_copy`);
-           raises for a tensor that is not on a CUDA device
+``'cuda'`` the CUDA kernel (:mod:`repro_torch.kernels.selective_copy`,
+           :mod:`repro_torch.kernels.attention`); raises for a tensor
+           that is not on a CUDA device
 ``'auto'`` the kernel for CUDA tensors, the plain version for CPU tensors
 ========== ===============================================================
 
@@ -25,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_copy as _k
 
@@ -50,6 +52,28 @@ def resolve(impl: str, t: torch.Tensor) -> str:
     if impl == "auto":
         return "cuda" if t.device.type == "cuda" else "ref"
     return impl
+
+
+def flash_attention(q, k, v, *, causal=True, window=0,
+                    impl="auto") -> torch.Tensor:
+    """Prefill attention ``[B, Hq, Sq, hd]`` of ``q [B, Hq, Sq, hd]`` over
+    ``k``/``v [B, Hkv, Skv, hd]`` (GQA, causal, sliding window)."""
+    if resolve(impl, q) == "cuda":
+        return _attn.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,
+                    impl="auto"
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial ``(acc, m, l)`` of decode attention over the anchored pages
+    ``tables [B, pps]`` names in one layer's pool ``[P, page, 2, Hkv,
+    hd]``."""
+    if resolve(impl, q) == "cuda":
+        return _attn.paged_attention(q, pool, tables, page_pos, seq_lens,
+                                     window=window)
+    return _ref.paged_attention_ref(q, pool, tables, page_pos, seq_lens,
+                                    window=window)
 
 
 def selective_copy(stream, meta_len, total_len, pool, tables, *, meta_max,

@@ -1,11 +1,13 @@
-"""Plain-PyTorch int32 versions of the four datapath kernels (the contract).
+"""Plain-PyTorch versions of the six kernels (the contract).
 
-Each function states the exact semantics its CUDA kernel in ``csrc/``
-reproduces bit for bit, and mirrors the jnp oracle of the same name in the
-JAX package line for line. The CPU tests run these; ``chip_smoke.py``
-compares each kernel with them on the card.
+Each function states the semantics its CUDA kernel in ``csrc/`` reproduces
+and mirrors the jnp oracle of the same name in the JAX package line for
+line. The CPU tests run these; ``chip_smoke.py`` compares each kernel with
+them on the card. The four datapath kernels are int32 and bit-identical to
+these; the two attention kernels are float32 and agree to rounding
+(``atol = rtol = 1e-4``, the JAX package's bar).
 
-Differences of idiom from the jnp oracles:
+Differences of idiom from the jnp oracles of the datapath:
 
 * indices are clamped explicitly before ``torch.gather`` / advanced
   indexing (``take_along_axis`` clamps for you);
@@ -20,11 +22,74 @@ Data stays int32 end to end; index tensors are int64.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 I32 = torch.int32
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Attention of ``q [B, Hq, Sq, hd]`` over ``k``/``v [B, Hkv, Skv, hd]``
+    at the implicit positions ``arange``: query head ``h`` reads KV head
+    ``h // (Hq // Hkv)``. Masked scores are ``NEG_INF``; ``causal`` keeps
+    ``iq >= ik``, ``window > 0`` keeps ``iq - ik < window``. Computed in
+    float32, returned in the dtype of ``q``."""
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, sq, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    iq = torch.arange(sq, device=q.device)[:, None]
+    ik = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (iq >= ik)
+    if window > 0:
+        ok = ok & (iq - ik < window)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, hd).to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
+                        tables: torch.Tensor, page_pos: torch.Tensor,
+                        seq_lens: torch.Tensor, *, window: int = 0,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial-softmax decode attention of ``q [B, Hq, hd]`` over the pages
+    ``tables [B, pps]`` names in ``pool [P, page, 2, Hkv, hd]`` (``-1``
+    slots skipped). Key ``t`` of slot ``j`` sits at position ``page_pos[b,
+    j] + t`` and is valid when that is ``<= seq_lens[b]`` (inclusive) and,
+    for ``window > 0``, ``seq_lens[b] - pos < window``. Returns float32
+    ``(acc [B, Hq, hd], m [B, Hq], l [B, Hq])``: the running max, the sum
+    of ``exp(s - m)`` over valid keys and the weighted sum of V, so the
+    output is ``acc / max(l, 1e-30)`` (partials combine across shards)."""
+    b, hq, hd = q.shape
+    _p, page, _two, hkv, _hd = pool.shape
+    pps = tables.shape[1]
+    g = hq // hkv
+    pages = pool[tables.long().clamp(min=0)]          # [B, pps, page, 2, Hkv, hd]
+    kk = pages[:, :, :, 0].reshape(b, pps * page, hkv, hd)
+    vv = pages[:, :, :, 1].reshape(b, pps * page, hkv, hd)
+    pos = (page_pos[:, :, None].long()
+           + torch.arange(page, device=q.device)[None, None, :])
+    sl = seq_lens.long()[:, None, None]
+    valid = (tables[:, :, None] >= 0) & (pos <= sl)
+    if window > 0:
+        valid = valid & (sl - pos < window)
+    valid = valid.reshape(b, 1, 1, pps * page)
+    qg = q.reshape(b, hkv, g, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, kk.float())
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgt,bthd->bhgd", p, vv.float())
+    return acc.reshape(b, hq, hd), m.reshape(b, hq), l.reshape(b, hq)
 
 
 def _meta_block(stream: torch.Tensor, meta_len: torch.Tensor,

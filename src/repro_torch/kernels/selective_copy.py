@@ -14,7 +14,8 @@ pool is updated in place.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,25 +33,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(name: str, t: Optional[torch.Tensor],
-           shape: Optional[Sequence[int]] = None, *,
-           device: Optional[torch.device] = None) -> None:
-    if t is None:
-        return
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got "
-                         f"one on {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
+#: operand check of the datapath kernels: every operand is int32
+_check = functools.partial(_build.check_tensor, dtype=torch.int32)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -58,12 +42,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call the C entry point ``libra_<name>`` on ``dev``'s current stream,
-    raise if the launch was refused, and count it."""
-    fn = getattr(_build.load(), f"libra_{name}")
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, name)
+    """Launch ``libra_<name>`` on ``dev``'s current stream (raising if the
+    launch was refused) and count it."""
+    _build.launch(name, dev, *args)
     LAUNCHES[name] += 1
 
 

@@ -1,0 +1,148 @@
+"""Shared model primitives: param templates, norms, RoPE, MLPs.
+
+PyTorch twins of the JAX package's ``repro.models.layers``. A ``ParamSpec``
+template is the single source of truth per architecture: ``init_params``
+(real tensors) and ``count_template_params`` are both derived from it.
+Parameters are nested dicts of tensors with the JAX package's keys and
+shapes, so a JAX parameter tree carries across leaf for leaf
+(:func:`repro_torch.models.convert.params_from_jax`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Any  # nested dict of tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0    # stddev multiplier for 'normal' (fan-in scaled)
+    fan_in_dims: Tuple[int, ...] = ()  # dims whose product is fan-in; () -> second-to-last
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+Template = Dict[str, Any]  # nested dict of ParamSpec
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest`` trees share the
+    keys of ``tree``); keys are visited in sorted order, as ``jax.tree``
+    flattens a dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _fan_in(spec: ParamSpec) -> int:
+    if spec.init != "normal":
+        return 1
+    if spec.fan_in_dims:
+        f = 1
+        for d in spec.fan_in_dims:
+            f *= spec.shape[d]
+        return f
+    if len(spec.shape) >= 2:
+        return spec.shape[-2]
+    return spec.shape[-1]
+
+
+def init_params(generator: torch.Generator, template: Template, *,
+                device) -> Params:
+    """Random parameters for ``template`` on ``device``, drawn from
+    ``generator`` (which must live on ``device``) with the JAX package's
+    standard deviations (``scale / sqrt(fan_in)``), zeros and ones, in
+    float32. The numbers differ from ``jax.random``'s: carry a JAX tree
+    across with ``params_from_jax`` where both packages must compute the
+    same thing."""
+    def make(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=torch.float32, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=torch.float32, device=device)
+        std = spec.scale / math.sqrt(_fan_in(spec))
+        return torch.randn(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device).mul_(std)
+    return tree_map(make, template)
+
+
+def count_template_params(template: Template) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(template))
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm scaled by ``(1 + w)``: ``w`` is initialised to zeros."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., seq, heads, head_dim]; positions broadcastable to [..., seq].
+    Rotates the split halves ``(x[:hd/2], x[hd/2:])``, not interleaved
+    pairs."""
+    dt = x.dtype
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # [hd/2]
+    ang = positions[..., None].float() * freqs                # [..., seq, hd/2]
+    cos = torch.cos(ang)[..., None, :]                        # [..., seq, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP blocks
+# ---------------------------------------------------------------------------
+
+def mlp_template(d_model: int, d_ff: int, act: str) -> Template:
+    if act == "swiglu":
+        return {
+            "w_gate": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "w_up": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+            "w_down": ParamSpec((d_ff, d_model), ("tensor", "fsdp")),
+        }
+    return {
+        "w_up": ParamSpec((d_model, d_ff), ("fsdp", "tensor")),
+        "b_up": ParamSpec((d_ff,), ("tensor",), init="zeros"),
+        "w_down": ParamSpec((d_ff, d_model), ("tensor", "fsdp")),
+        "b_down": ParamSpec((d_model,), (None,), init="zeros"),
+    }
+
+
+def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    return h @ p["w_down"] + p["b_down"]
