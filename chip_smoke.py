@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs, in
 order:
 
@@ -41,12 +41,29 @@ order:
    back, and each kernel must have launched. Prints tokens/s, p99 latency,
    time to first token, peak device memory, launches, and a profiler split
    of one decode step.
-7. **timing** -- each kernel, its plain version and (where one exists) a
+7. **mlstm_parity** -- the mLSTM kernel against the plain chunked version
+   on the card, ``h`` and the final ``(C, n, m)``: the JAX package's test
+   shapes (``atol = rtol = 5e-4``), its gate extremes (3e-3), S that is no
+   multiple of the chunk, and the xLSTM run's shape (B=8, H=4, S=4096,
+   dh=512, chunk 64).
+8. **xlstm_serve** -- ``XLSTMModel`` of ``xlstm-350m`` at full width and
+   depth (528 M float32 parameters from a fixed seed): 8 prompts of 4096
+   tokens, one ``prefill`` and 31 greedy ``decode_step``s, once through
+   the kernel (``mlstm_impl='auto'``) and once through the plain version
+   (``'ref'``). Tokens must be identical under the near-tie rule of phase
+   6, the decode state after prefill must lie no farther from that of a
+   run whose scans are computed in float64 than twice the plain run's
+   distance, a control whose scans take bfloat16-rounded inputs must fail
+   that rule, and the kernel must have launched once per mLSTM block
+   (21). Prints each run's ratio to the plain run's distance, prefill
+   seconds, ms per decode step, tokens/s, peak device memory and a
+   profiler split of the prefill.
+9. **timing** -- each kernel, its plain version and (where one exists) a
    single PyTorch library call at the main path's shapes: CUDA events
    around each launch, L2 flushed before it, median of 30 launches; the
    bound is the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the card's peak for their type (int32 for the
-   datapath, float32 for attention).
+   datapath, float32 for attention and the mLSTM scan).
 
 Float32 products run in full float32 (TF32 off). Each phase prints one JSON
 line. Then come the card's name and power limit (``nvidia-smi``), the
@@ -75,9 +92,18 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 # maximum SM clock, both read from the card.
 INT32_OPS_PER_SM_CLOCK = 64
 # float32 FMA: 128 lanes per SM, 2 operations each, per clock (the same
-# table); the attention kernels' operations are of that type.
+# table); the attention and mLSTM kernels' operations are of that type.
 FP32_OPS_PER_SM_CLOCK = 256
 ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
+# the JAX package's bars for its Pallas mLSTM kernel (tests/test_kernels.py)
+MLSTM_TOL = dict(atol=5e-4, rtol=5e-4)
+MLSTM_TOL_EXTREME = dict(atol=3e-3, rtol=3e-3)
+# xLSTM decode state after prefill: 24 blocks and 3 x 4096 sLSTM steps
+# amplify the scans' float32 rounding, so the kernel run is held against a
+# run whose scans are float64, no farther from it than this many times the
+# plain float32 run is. Sound kernel runs read at most 1.17 (PERF.md,
+# section 6); a run whose scans take bfloat16-rounded inputs must exceed it
+XLSTM_STATE_FACTOR = 2.0
 TIMED_RUNS = 30
 SPIN_CYCLES = 1_000_000     # ~0.5 ms at H100 clocks: longer than an enqueue
 
@@ -88,6 +114,7 @@ KERNELS = {
     "fused_round": "src/repro/kernels/selective_copy.py:554",
     "paged_attention": "src/repro/kernels/paged_attention.py:84",
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
+    "mlstm_scan": "src/repro/kernels/mlstm_scan.py:73",
 }
 DATAPATH = ("selective_copy", "selective_gather", "policy_match",
             "fused_round")
@@ -154,6 +181,18 @@ class ServeSize:
     @property
     def pool_pages(self) -> int:     # LibraEngine: max_batch * pps + 4
         return self.max_batch * self.pps + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class XlstmSize:
+    """The xLSTM run (see PERF.md, Cells): xlstm-350m at full width and
+    depth, 8 prompts of 4096 tokens, one prefill and 31 decode steps."""
+    arch: str = "xlstm-350m"
+    seed: int = 0
+    batch: int = 8
+    prompt: int = 4096
+    gen: int = 32
+    chunk: int = 64
 
 
 class SmokeError(Exception):
@@ -617,7 +656,8 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops):
 
 class LogitMargins:
     """Top-2 margin and spread (max - min) of every row of every logits
-    call of one engine run, and which call and row produced each token."""
+    call of one run and, for an engine run (:meth:`step`), which call and
+    row produced each token."""
 
     def __init__(self, model):
         self.calls = []           # [(margins [rows], spreads [rows])]
@@ -819,7 +859,289 @@ def serve(ss: ServeSize, dev, torch, np, kattn):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing
+# phases 7-8: mLSTM parity and the xLSTM run
+# ---------------------------------------------------------------------------
+
+def mlstm_case(gen, dev, torch, *, b, h, s, dh, extreme=False):
+    """q, k, v [B, H, S, dh] ~ N(0, 1); log_i ~ N(0, 1) and log_f =
+    logsigmoid(N(2, 1)), as the JAX package's tests draw them; ``extreme``
+    draws log_i ~ N(0, 16) and log_f = logsigmoid(N(0, 16))."""
+    F = torch.nn.functional
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k, v = rn(b, h, s, dh), rn(b, h, s, dh), rn(b, h, s, dh)
+    if extreme:
+        return q, k, v, rn(b, h, s) * 4, F.logsigmoid(rn(b, h, s) * 4)
+    return q, k, v, rn(b, h, s), F.logsigmoid(rn(b, h, s) + 2)
+
+
+def mlstm_parity(xs: XlstmSize, cfg, dev, torch, ops):
+    """The mLSTM kernel against the plain chunked version on the card: h
+    and the final (C, n, m)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    dh_run = cfg.ssm_expand * cfg.d_model // cfg.num_heads
+    run = dict(b=xs.batch, h=cfg.num_heads, s=xs.prompt, dh=dh_run)
+    # (label, shape, chunk, extreme): tests/test_kernels.py's shapes, its
+    # gate extremes, ragged S, and the run's shape
+    cases = [("b1h1-s64-dh32-c16", dict(b=1, h=1, s=64, dh=32), 16, False),
+             ("b2h3-s64-dh32-c32", dict(b=2, h=3, s=64, dh=32), 32, False),
+             ("b1h2-s128-dh64-c16", dict(b=1, h=2, s=128, dh=64), 16, False),
+             ("extreme-b2h2-s64-dh16-c16", dict(b=2, h=2, s=64, dh=16), 16,
+              True),
+             ("extreme-b1h2-s64-dh16-c32", dict(b=1, h=2, s=64, dh=16), 32,
+              True),
+             ("ragged-b2h3-s100-dh32-c32", dict(b=2, h=3, s=100, dh=32), 32,
+              False),
+             ("ragged-b2h2-s70-dh64-c64", dict(b=2, h=2, s=70, dh=64), 64,
+              False),
+             ("ragged-b1h4-s1000-dh512-c64", dict(b=1, h=4, s=1000,
+                                                  dh=dh_run), 64, False),
+             ("run", run, xs.chunk, False)]
+    results = []
+    for label, shape, chunk, extreme in cases:
+        case = mlstm_case(gen, dev, torch, extreme=extreme, **shape)
+        outs = [ops.mlstm_scan(*case, chunk=chunk, impl=impl,
+                               return_state=True) for impl in ("cuda", "ref")]
+        torch.cuda.synchronize()
+        (hk, sk), (hr, sr) = outs
+        tol = MLSTM_TOL_EXTREME if extreme else MLSTM_TOL
+        pairs = dict(zip(("h", "C", "n", "m"), zip((hk, *sk), (hr, *sr))))
+        errs = {k: float((a - b).abs().max()) for k, (a, b) in pairs.items()}
+        ok = all(torch.isfinite(a).all() and torch.allclose(a, b, **tol)
+                 for a, b in pairs.values())
+        results.append(dict(kernel="mlstm_scan", case=label, close=bool(ok),
+                            tol=tol, max_abs_err=max(errs.values()),
+                            max_abs_err_by_output=errs))
+        check(ok, f"mlstm_scan [{label}] differs from its plain version "
+                  f"(max abs errors {errs}, tolerance {tol})")
+    emit({"phase": "mlstm_parity", "cases": len(results),
+          "all_close": all(r["close"] for r in results),
+          "tol": MLSTM_TOL, "tol_gate_extremes": MLSTM_TOL_EXTREME,
+          "max_abs_err": {r["case"]: r["max_abs_err_by_output"]
+                          for r in results}})
+    return results
+
+
+def xlstm_run(xs: XlstmSize, model, params, tokens, seq_lens, torch,
+              kmlstm):
+    """One prefill and ``gen - 1`` greedy decode steps; returns the run's
+    numbers, its tokens and a copy of the decode state after prefill."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmlstm.reset_launches()
+    t0 = time.perf_counter()
+    first, state = model.prefill(params, tokens, seq_lens)
+    out = [first.tolist()]                 # the step ends on a download
+    prefill_s = time.perf_counter() - t0
+    after_prefill = {k: v.clone() for k, v in state.items()}
+    cur, step_s = first, []
+    for i in range(xs.gen - 1):
+        ts = time.perf_counter()
+        cur, state = model.decode_step(params, cur, seq_lens + i, state)
+        out.append(cur.tolist())
+        step_s.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    total = prefill_s + sum(step_s)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+    check(finite, f"{model.mlstm_impl}: non-finite decode state")
+    run = dict(mlstm_impl=model.mlstm_impl, prefill_s=prefill_s,
+               prefill_tokens_per_s=xs.batch * xs.prompt / prefill_s,
+               decode_step_ms={k: f(step_s) * 1e3 for k, f in (
+                   ("min", min), ("median", statistics.median),
+                   ("max", max))},
+               decode_tokens_per_s=xs.batch * len(step_s) / sum(step_s),
+               seconds=total, tokens_per_s=xs.batch * xs.gen / total,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=dict(kmlstm.LAUNCHES))
+    rows = [list(r) for r in zip(*out)]    # [batch][gen]
+    return run, rows, after_prefill
+
+
+def prefill_split(model, params, tokens, seq_lens, torch):
+    """One profiled prefill: device time by kernel kind, and the host wall
+    of the mLSTM scans (transposes in, scan; synchronised) and of the
+    sLSTM step loops; host gaps are wall minus device time. Only device
+    activity is traced, and the raw trace events are summed: the 3 x 4096
+    sLSTM steps launch about 250 000 kernels, too many to turn into
+    ``key_averages``' per-op events within the script's time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+
+    wall = {"mlstm_scan_calls": 0.0, "slstm_step_loops": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            wall[key] += time.perf_counter() - t
+            return out
+        return run
+    scan, loop = ssm.ops.mlstm_scan, ssm._slstm_scan
+    ssm.ops.mlstm_scan = timed("mlstm_scan_calls", scan)
+    ssm._slstm_scan = timed("slstm_step_loops", loop)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.prefill(params, tokens, seq_lens)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        ssm.ops.mlstm_scan, ssm._slstm_scan = scan, loop
+    kinds = {"mlstm_scan": re.compile(r"mlstm_scan"),
+             "matmul": re.compile(r"gemm|gemv|xmma|cutlass|splitK|dot_kernel",
+                                  re.I),
+             "copies": re.compile(r"copy|memcpy|memset", re.I)}
+    split = {k: 0.0 for k in (*kinds, "other")}
+    top, n_events = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        n_events += 1
+        ms = e.duration_ns() / 1e6
+        kind = next((k for k, rx in kinds.items() if rx.search(e.name())),
+                    "other")
+        split[kind] += ms
+        top[e.name()[:70]] = top.get(e.name()[:70], 0.0) + ms
+    device_ms = sum(split.values())
+    check(split["mlstm_scan"] > 0, "the profiled prefill ran no mlstm_scan")
+    return {"wall_s": wall_s, "device_s": device_ms / 1e3,
+            "host_gap_s": wall_s - device_ms / 1e3,
+            "device_busy_share": device_ms / 1e3 / wall_s,
+            "device_events": n_events,
+            "device_ms_by_kind": split,
+            "host_wall_s_synchronised": wall,
+            "top_device_ms": dict(sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:10])}
+
+
+def scan_state(model, params, tokens, seq_lens, torch, dtype):
+    """The decode state after a prefill whose mLSTM scans run the plain
+    chunked version on inputs cast to ``dtype`` (everything else as in the
+    plain run). float64 gives the yardstick both float32 runs are measured
+    against; bfloat16 (inputs rounded, computed in float32) gives the
+    control the state rule must flag."""
+    from repro_torch.models import ssm
+
+    scan = ssm.ops.mlstm_scan
+
+    def cast(q, k, v, log_i, log_f, *, chunk, impl, return_state):
+        h, st = scan(*(t.to(dtype) for t in (q, k, v, log_i, log_f)),
+                     chunk=chunk, impl="ref", return_state=True)
+        return h.float(), tuple(t.float() for t in st)
+    ssm.ops.mlstm_scan = cast
+    try:
+        return model.prefill(params, tokens, seq_lens)[1]
+    finally:
+        ssm.ops.mlstm_scan = scan
+
+
+def xlstm_serve(xs: XlstmSize, dev, torch, np, kmlstm):
+    """xlstm-350m prefill + decode, the kernel against the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(xs.arch)
+    models = {impl: build_model(cfg, mlstm_impl=impl)
+              for impl in ("auto", "ref")}
+    t0 = time.perf_counter()
+    params = models["auto"].init_params(xs.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(xs.seed)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size - 1, (xs.batch, xs.prompt)).astype(np.int32)).to(dev)
+    seq_lens = torch.full((xs.batch,), xs.prompt, dtype=torch.int32,
+                          device=dev)
+    # the plain run's logits calls: call 0 is the prefill (the first
+    # tokens), call i the decode step that gave token i
+    margins = LogitMargins(models["ref"])
+    kern_run, kern_rows, kern_state = xlstm_run(
+        xs, models["auto"], params, tokens, seq_lens, torch, kmlstm)
+    split = prefill_split(models["auto"], params, tokens, seq_lens, torch)
+    ref_run, ref_rows, ref_state = xlstm_run(
+        xs, models["ref"], params, tokens, seq_lens, torch, kmlstm)
+    y_state = scan_state(models["ref"], params, tokens, seq_lens, torch,
+                         torch.float64)
+    ctl_state = scan_state(models["ref"], params, tokens, seq_lens, torch,
+                           torch.bfloat16)
+    n_mlstm = models["auto"].n_mlstm
+    # the decode state after prefill: distances to the run whose scans
+    # are computed in float64, and each run's ratio to the plain run's
+    state_err, far = {}, []
+    for key, y in y_state.items():
+        e_kern = float((kern_state[key] - y).abs().max())
+        e_plain = float((ref_state[key] - y).abs().max())
+        e_ctl = float((ctl_state[key] - y).abs().max())
+        scale = float(y.abs().max())
+        slack = 1e-6 * scale
+        state_err[key] = {
+            "kernel_vs_plain": float((kern_state[key] - ref_state[key])
+                                     .abs().max()),
+            "kernel_vs_f64": e_kern, "plain_vs_f64": e_plain,
+            "bf16_control_vs_f64": e_ctl,
+            "kernel_ratio": e_kern / max(e_plain, slack),
+            "bf16_control_ratio": e_ctl / max(e_plain, slack),
+            "max_abs": scale}
+        if e_kern > XLSTM_STATE_FACTOR * e_plain + slack:
+            far.append(key)
+        if e_ctl > XLSTM_STATE_FACTOR * e_plain + slack:
+            state_err[key]["bf16_control_flagged"] = True
+    del kern_state, ref_state, y_state, ctl_state
+    ratios = {r: max(e[r] for e in state_err.values())
+              for r in ("kernel_ratio", "bf16_control_ratio")}
+    diverged = []
+    for row, (got, want) in enumerate(zip(kern_rows, ref_rows)):
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        if first is not None:
+            margin_rows, spread_rows = margins.calls[first]
+            diverged.append(dict(row=row, token=first,
+                                 kernel=got[first], plain=want[first],
+                                 margin=margin_rows[row],
+                                 spread=spread_rows[row]))
+    emit({"phase": "xlstm_serve", "arch": xs.arch,
+          "params": cfg.param_count(), "param_init_s": init_s,
+          "mlstm_blocks": n_mlstm, "slstm_blocks": models["auto"].n_slstm,
+          "batch": xs.batch, "prompt": xs.prompt, "gen": xs.gen,
+          "identical_tokens": not diverged, "diverged": diverged,
+          "state_rule": f"max |kernel - f64| <= {XLSTM_STATE_FACTOR} x "
+                        "max |plain - f64| + 1e-6 x max |f64|",
+          "state_after_prefill": state_err,
+          "max_kernel_ratio": ratios["kernel_ratio"],
+          "max_bf16_control_ratio": ratios["bf16_control_ratio"],
+          "kernels": kern_run, "plain": ref_run, "prefill_split": split})
+    check(kern_run["launches"]["mlstm_scan"] == n_mlstm,
+          f"mlstm_scan launched {kern_run['launches']['mlstm_scan']} times "
+          f"in the kernel run, expected one per mLSTM block ({n_mlstm})")
+    check(ref_run["launches"]["mlstm_scan"] == 0,
+          "mlstm_scan launched in the plain run")
+    check(not far, f"decode state {far} after prefill: the kernel run is "
+                   "farther from the float64-scan run than the rule allows")
+    check(any(e.get("bf16_control_flagged") for e in state_err.values()),
+          "the state rule passes the bfloat16-input control: it cannot "
+          "tell a faulty scan from a sound one")
+    for row, (got, want) in enumerate(zip(kern_rows, ref_rows)):
+        check(len(got) == len(want) == xs.gen, f"row {row}: wrong length")
+    for d in diverged:
+        check(d["margin"] < 1e-3 * d["spread"],
+              f"row {d['row']} token {d['token']}: kernel {d['kernel']} vs "
+              f"plain {d['plain']}, plain top-2 margin {d['margin']} is not "
+              f"below 1e-3 of the spread {d['spread']}")
+    del params
+    torch.cuda.empty_cache()
+    return kern_run
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timing
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, torch, runs: int = TIMED_RUNS) -> float:
@@ -895,7 +1217,8 @@ def bound(bytes_: int, ops_: int, ops_per_s: float):
             bytes_)
 
 
-def timing(size: Size, ss: ServeSize, dev, torch, np, ops, tt):
+def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
+           tt):
     rng = np.random.default_rng(29)
     big = dict(b=size.channels, page=size.page, pps=size.pps,
                meta_max=size.meta_max)
@@ -1030,6 +1353,28 @@ def timing(size: Size, ss: ServeSize, dev, torch, np, ops, tt):
            4 * ss.max_batch * hq * hd * pairs),
           lib_fn=lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True),
           ops_rate=frate)
+    del fq, fk, fv, pc, q, pool
+    # mlstm_scan: one mLSTM block of the xLSTM prefill. Per (row, head,
+    # chunk): q kT and (S o qk) v over the causal triangle, c(c+1)/2 dh FMA
+    # each (the gate matrix is -1e30 above the diagonal), q C and (k w)T v,
+    # c dh^2 FMA each; q, k, v, the gates read once, h and the final state
+    # written once. No single PyTorch call computes an mLSTM.
+    xcfg = get_config(xs.arch)
+    dh = xcfg.ssm_expand * xcfg.d_model // xcfg.num_heads
+    mc = mlstm_case(gen, dev, torch, b=xs.batch, h=xcfg.num_heads,
+                    s=xs.prompt, dh=dh)
+    c, bh = xs.chunk, xs.batch * xcfg.num_heads
+    chunks = -(-xs.prompt // c)
+    flops = 2 * bh * chunks * (c * (c + 1) * dh + 2 * c * dh * dh)
+    nbytes = 4 * (4 * mc[0].numel() + 2 * mc[3].numel()
+                  + bh * (dh * dh + dh + 1))
+    entry("mlstm_scan", f"B={xs.batch} H={xcfg.num_heads} S={xs.prompt} "
+          f"dh={dh} chunk={c}",
+          lambda: ops.mlstm_scan(*mc, chunk=c, impl="cuda",
+                                 return_state=True),
+          lambda: ops.mlstm_scan(*mc, chunk=c, impl="ref",
+                                 return_state=True),
+          (nbytes, flops), ops_rate=frate)
     emit({"phase": "timing", "runs": TIMED_RUNS,
           "int32_ops_per_s": rate, "fp32_ops_per_s": frate,
           "hbm_bytes_per_s": HBM_BYTES_PER_S, "kernels": out})
@@ -1055,6 +1400,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import mlstm_scan as kmlstm
     from repro_torch.kernels import selective_copy as kern
     from repro_torch.kernels import testing as tt
 
@@ -1086,7 +1432,11 @@ def main() -> int:
     cfg = get_config(ss.arch)
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)
     srv = timed("serve", serve, ss, dev, torch, np, kattn)
-    tim = timed("timing", timing, size, ss, dev, torch, np, ops, tt)
+    xs = XlstmSize()
+    mpar = timed("mlstm_parity", mlstm_parity, xs, get_config(xs.arch), dev,
+                 torch, ops)
+    xsrv = timed("xlstm_serve", xlstm_serve, xs, dev, torch, np, kmlstm)
+    tim = timed("timing", timing, size, ss, xs, dev, torch, np, ops, tt)
     emit({"phase_seconds": phase_s})
 
     smi = subprocess.run(
@@ -1103,6 +1453,9 @@ def main() -> int:
             launches = sum(r["launches"][name] for rs in runs.values()
                            for r in rs)
             err = max(r["max_abs_err"] for r in par if r["kernel"] == name)
+        elif name == "mlstm_scan":
+            launches = xsrv["launches"][name]
+            err = max(r["max_abs_err"] for r in mpar)
         else:
             launches = srv["launches"][name]
             err = max(r["max_abs_err"] for r in apar if r["kernel"] == name)

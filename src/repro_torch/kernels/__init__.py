@@ -1,3 +1,4 @@
-"""Batched-datapath kernels: CUDA C++ for sm_90a (``csrc/``), their Python
-wrappers (:mod:`.selective_copy`), plain PyTorch versions (:mod:`.ref`) and
-the ``impl`` dispatch (:mod:`.ops`)."""
+"""The seven kernels: CUDA C++ for sm_90a (``csrc/``), their Python
+wrappers (:mod:`.selective_copy`, :mod:`.attention`, :mod:`.mlstm_scan`),
+plain PyTorch versions (:mod:`.ref`) and the ``impl`` dispatch
+(:mod:`.ops`)."""

@@ -40,6 +40,7 @@ SIGNATURES = {
     "libra_fused_round": [_P] * 15 + [_I] * 8 + [_P],
     "libra_paged_attention": [_P] * 8 + [_I] * 7 + [_P],
     "libra_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    "libra_mlstm_scan": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -7,7 +7,8 @@ mean the same in both:
 ========== ===============================================================
 ``'ref'``  the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 ``'cuda'`` the CUDA kernel (:mod:`repro_torch.kernels.selective_copy`,
-           :mod:`repro_torch.kernels.attention`); raises for a tensor
+           :mod:`repro_torch.kernels.attention`,
+           :mod:`repro_torch.kernels.mlstm_scan`); raises for a tensor
            that is not on a CUDA device
 ``'auto'`` the kernel for CUDA tensors, the plain version for CPU tensors
 ========== ===============================================================
@@ -27,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import attention as _attn
+from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_copy as _k
 
@@ -74,6 +76,22 @@ def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,
                                      window=window)
     return _ref.paged_attention_ref(q, pool, tables, page_pos, seq_lens,
                                     window=window)
+
+
+def mlstm_scan(q, k, v, log_i, log_f, *, chunk=64, impl="auto",
+               return_state=False):
+    """Stabilised chunkwise mLSTM from the zero state: ``h [B, H, S, dh]``
+    of ``q``/``k``/``v [B, H, S, dh]`` and the gates ``log_i``/``log_f
+    [B, H, S]`` (``log_f`` log-sigmoided), and with ``return_state`` also
+    the final ``(C [B, H, dh, dh], n [B, H, dh], m [B, H])``. ``'ref'`` is
+    the plain chunked version; the JAX package's ``'ref'`` is the
+    sequential oracle, which is :func:`ref.mlstm_scan_ref` here."""
+    if resolve(impl, q) == "cuda":
+        out, state = _mlstm.mlstm_scan(q, k, v, log_i, log_f, chunk=chunk)
+    else:
+        out, state = _ref.mlstm_chunked_ref(q, k, v, log_i, log_f,
+                                            chunk=chunk)
+    return (out, state) if return_state else out
 
 
 def selective_copy(stream, meta_len, total_len, pool, tables, *, meta_max,

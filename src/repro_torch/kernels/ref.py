@@ -1,11 +1,13 @@
-"""Plain-PyTorch versions of the six kernels (the contract).
+"""Plain-PyTorch versions of the seven kernels (the contract).
 
 Each function states the semantics its CUDA kernel in ``csrc/`` reproduces
 and mirrors the jnp oracle of the same name in the JAX package line for
 line. The CPU tests run these; ``chip_smoke.py`` compares each kernel with
 them on the card. The four datapath kernels are int32 and bit-identical to
 these; the two attention kernels are float32 and agree to rounding
-(``atol = rtol = 1e-4``, the JAX package's bar).
+(``atol = rtol = 1e-4``, the JAX package's bar), and so does the mLSTM
+scan (``atol = rtol = 5e-4``, 3e-3 at gate extremes, as the JAX package's
+tests hold its Pallas kernel).
 
 Differences of idiom from the jnp oracles of the datapath:
 
@@ -26,6 +28,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 I32 = torch.int32
 NEG_INF = -1e30
@@ -254,3 +257,74 @@ def fused_round_ref(stream: torch.Tensor, meta_len: torch.Tensor,
                                    payload_len=plen)
     out = selective_gather_ref(pool, tables, plen, tx_keystream)
     return meta, pool, verdict, out
+
+
+def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_i: torch.Tensor, log_f: torch.Tensor, *,
+                      chunk: int = 64,
+                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]]:
+    """Stabilised chunkwise-parallel mLSTM from the zero state, the twin of
+    the JAX package's ``models.ssm.mlstm_cell_chunked`` in the kernel's
+    layout: ``q``/``k``/``v [B, H, S, dh]``, ``log_i``/``log_f [B, H, S]``
+    (``log_f`` log-sigmoided). Returns ``(h [B, H, S, dh], (C [B, H, dh,
+    dh], n [B, H, dh], m [B, H]))``, computed in float32 (float64 for
+    float64 inputs). ``S`` is padded to a multiple of ``chunk`` as the JAX
+    function pads it (zeros for q/k/v, ``log_i = NEG_INF``, ``log_f =
+    0``)."""
+    b, h, s, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+    dt = torch.promote_types(q.dtype, torch.float32)
+    q, k, v, log_i, log_f = (x.to(dt) for x in (q, k, v, log_i, log_f))
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        log_i = F.pad(log_i, (0, pad), value=NEG_INF)
+        log_f = F.pad(log_f, (0, pad))
+    dev = q.device
+    C = torch.zeros((b, h, dh, dh), dtype=dt, device=dev)
+    n = torch.zeros((b, h, dh), dtype=dt, device=dev)
+    m = torch.full((b, h), NEG_INF, dtype=dt, device=dev)
+    tmask = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    hs = []
+    for j in range(nchunks):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]   # [B, H, c, dh]
+        li, lf = log_i[:, :, sl], log_f[:, :, sl]            # [B, H, c]
+        A = torch.cumsum(lf, dim=-1)                         # inclusive
+        # intra-chunk log weights W[t, s] = A_t - A_s + li_s (s <= t)
+        W = A[..., :, None] - A[..., None, :] + li[..., None, :]
+        W = torch.where(tmask, W, torch.full_like(W, NEG_INF))
+        binter = A + m[..., None]                            # carried state
+        m_loc = torch.maximum(W.amax(dim=-1), binter)
+        P = torch.exp(W - m_loc[..., None]) * (qc @ kc.transpose(-1, -2)
+                                               * scale)
+        e_inter = torch.exp(binter - m_loc)
+        num = P @ vc + e_inter[..., None] * (qc @ C)
+        den = P.sum(dim=-1) + e_inter * (qc @ n[..., None])[..., 0]
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_loc))[..., None])
+        # ---- state update to the end of the chunk ----
+        A_T = A[..., -1]
+        w_end = A_T[..., None] - A + li
+        m_new = torch.maximum(A_T + m, w_end.amax(dim=-1))
+        kw = kc * scale * torch.exp(w_end - m_new[..., None])[..., None]
+        decay = torch.exp(A_T + m - m_new)
+        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
+        n = decay[..., None] * n + kw.sum(dim=-2)
+        m = m_new
+    out = (torch.cat(hs, dim=2) if hs else q)[:, :, :s]
+    return out, (C, n, m)
+
+
+def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_i: torch.Tensor, log_f: torch.Tensor) -> torch.Tensor:
+    """Sequential mLSTM oracle. q/k/v [B, H, S, dh]; gates [B, H, S].
+    Returns h [B, H, S, dh]."""
+    from repro_torch.models.ssm import mlstm_cell_sequential
+
+    h, _ = mlstm_cell_sequential(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        log_i.transpose(1, 2), log_f.transpose(1, 2))
+    return h.transpose(1, 2)

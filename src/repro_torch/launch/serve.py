@@ -8,7 +8,9 @@ print throughput / latency / boundary-traffic stats, as the JAX package's
 ``--reduced`` (the default) serves the config's small same-family
 variant; ``--no-reduced`` serves the published one. ``--device`` is
 ``cuda`` by default and raises without a GPU. Only the Libra engine is
-ported; the baseline engines wait (``ROADMAP.md``, queue 1, item 8).
+ported; the baseline engines wait (``ROADMAP.md``, queue 1, item 8). The
+engine serves the dense family only: xlstm-350m has no KV pool, and the
+JAX launcher fails on it too.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ PAGE_SIZE = 8
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="libra-proxy-125m",
-                    choices=ARCHS + ["libra-proxy-125m"])
+                    choices=[a for a in ARCHS + ["libra-proxy-125m"]
+                             if get_config(a).family == "dense"])
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--engine", default="libra", choices=list(ENGINES))

@@ -1,4 +1,5 @@
-"""Models of the port: the dense decoder-only LM that the serving slice
-runs (``transformer``), its primitives (``layers``), attention paths
+"""Models of the port: the dense decoder-only LM that ``LibraEngine``
+serves (``transformer``) and the xLSTM LM (``xlstm_model``, its mLSTM and
+sLSTM blocks in ``ssm``), their primitives (``layers``), attention paths
 (``attention``), the registry and the carrier of JAX weights
 (``convert``)."""

@@ -1,4 +1,5 @@
-"""Shared model primitives: param templates, norms, RoPE, MLPs.
+"""Shared model primitives: param templates, norms, RoPE, MLPs, the causal
+depthwise conv of the xLSTM blocks.
 
 PyTorch twins of the JAX package's ``repro.models.layers``. A ``ParamSpec``
 template is the single source of truth per architecture: ``init_params``
@@ -99,6 +100,24 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (x * (1.0 + w.float())).to(dt)
 
 
+def group_norm(x: torch.Tensor, w: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm used by xLSTM cells. x [..., H*dh] grouped by H;
+    population variance, as ``jnp.var``."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x.reshape(*lead, d) * w.float()).to(dt)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -144,5 +163,29 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
         return h @ p["w_down"]
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    h = gelu(x @ p["w_up"] + p["b_up"])
     return h @ p["w_down"] + p["b_down"]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x [B, S, C], w [K, C]."""
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):  # K is tiny (4)
+        out = out + pad[:, i: i + x.shape[1], :] * w[i]
+    if b is not None:
+        out = out + b
+    return out
+
+
+def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step of the causal conv. conv_state [B, K-1, C]."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # [B, K, C]
+    out = torch.einsum("bkc,kc->bc", window, w)
+    if b is not None:
+        out = out + b
+    return out, window[:, 1:, :]

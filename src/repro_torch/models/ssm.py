@@ -1,0 +1,228 @@
+"""Recurrent mixers of the xLSTM family: mLSTM and sLSTM blocks.
+
+PyTorch twins of the mLSTM and sLSTM parts of the JAX package's
+``repro.models.ssm``; the Mamba mixer belongs to the ``hybrid`` family and
+is not ported yet (``ROADMAP.md``, "What is left").
+
+One deliberate difference: ``mlstm_block_forward`` runs its chunkwise scan
+through ``ops.mlstm_scan(..., return_state=True)`` (the CUDA kernel on a
+CUDA tensor, the plain chunked version on the CPU), where the JAX function
+calls its jnp ``mlstm_cell_chunked`` and no caller reaches the Pallas
+kernel. The scan starts from the zero state: the JAX function's ``state=``
+argument has no caller and is not carried. ``_slstm_scan`` is a sequential
+recurrence with no TPU kernel behind it and stays a plain loop.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (
+    ParamSpec,
+    causal_conv1d,
+    conv1d_step,
+    gelu,
+    group_norm,
+    rms_norm,
+)
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# mLSTM — matrix-memory LSTM (xLSTM), chunkwise-parallel + O(1) decode step
+# ---------------------------------------------------------------------------
+
+
+def mlstm_block_template(d_model: int, num_heads: int, conv: int,
+                         expand: int) -> Dict:
+    ud = expand * d_model
+    return {
+        "ln_w": ParamSpec((d_model,), (None,), init="zeros"),
+        "up_proj": ParamSpec((d_model, 2 * ud), ("fsdp", "tensor")),
+        "conv_w": ParamSpec((conv, ud), ("conv", "tensor")),
+        "conv_b": ParamSpec((ud,), ("tensor",), init="zeros"),
+        "wq": ParamSpec((ud, ud), ("fsdp", "tensor")),
+        "wk": ParamSpec((ud, ud), ("fsdp", "tensor")),
+        "wv": ParamSpec((ud, ud), ("fsdp", "tensor")),
+        "w_gates": ParamSpec((d_model, 2 * num_heads), ("fsdp", None)),
+        "b_gates": ParamSpec((2 * num_heads,), (None,), init="zeros"),
+        "gn_w": ParamSpec((ud,), ("tensor",), init="ones"),
+        "down_proj": ParamSpec((ud, d_model), ("tensor", "fsdp")),
+    }
+
+
+def mlstm_cell_step(qt, kt, vt, li, lf, state):
+    """One decode step. qt/kt/vt [B,H,dh]; li/lf [B,H]; state (C,n,m)."""
+    C, n, m = state
+    dh = qt.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    qt, kt, vt = (x.float() for x in (qt, kt, vt))
+    m_new = torch.maximum(lf + m, li)
+    fg = torch.exp(lf + m - m_new)
+    ig = torch.exp(li - m_new)
+    C = (fg[..., None, None] * C
+         + ig[..., None, None] * (kt[..., None] * vt[..., None, :]) * scale)
+    n = fg[..., None] * n + ig[..., None] * kt * scale
+    num = torch.einsum("bhd,bhde->bhe", qt, C)
+    den = torch.einsum("bhd,bhd->bh", qt, n).abs()
+    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return h, (C, n, m_new)
+
+
+def mlstm_cell_sequential(q, k, v, log_i, log_f, state=None):
+    """Sequential oracle. q/k/v [B,S,H,dh]; log_i/log_f [B,S,H].
+
+    Returns (h [B,S,H,dh], state (C [B,H,dh,dh], n [B,H,dh], m [B,H])).
+    """
+    b, s, h, dh = q.shape
+    if state is None:
+        state = (torch.zeros((b, h, dh, dh), device=q.device),
+                 torch.zeros((b, h, dh), device=q.device),
+                 torch.full((b, h), NEG_INF, device=q.device))
+    hs = []
+    for t in range(s):
+        ht, state = mlstm_cell_step(q[:, t], k[:, t], v[:, t], log_i[:, t],
+                                    log_f[:, t], state)
+        hs.append(ht)
+    out = torch.stack(hs, dim=1) if hs else q.float()
+    return out.to(q.dtype), state
+
+
+def _mlstm_proj(p, h, u, cu, num_heads: int):
+    """q, k from the conv branch ``cu`` and v from ``u``, split into heads:
+    [..., ud] -> [..., H, dh]."""
+    ud = u.shape[-1]
+    q = (cu @ p["wq"]).unflatten(-1, (num_heads, ud // num_heads))
+    k = (cu @ p["wk"]).unflatten(-1, (num_heads, ud // num_heads))
+    v = (u @ p["wv"]).unflatten(-1, (num_heads, ud // num_heads))
+    gates = (h @ p["w_gates"] + p["b_gates"]).float()
+    return q, k, v, gates[..., :num_heads], F.logsigmoid(gates[..., num_heads:])
+
+
+def mlstm_block_forward(p, x, cfg, *, chunk: int = 64, return_state=False,
+                        impl: str = "auto"):
+    """Full mLSTM residual block. x [B,S,D]. ``impl`` is the
+    ``ops.mlstm_scan`` impl of the scan."""
+    h = rms_norm(x, p["ln_w"], 1e-5)
+    ud = p["conv_w"].shape[1]
+    H = cfg.num_heads
+    upg = h @ p["up_proj"]
+    u, z = upg[..., :ud], upg[..., ud:]
+    cu = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
+    b, s, _ = x.shape
+    q, k, v, log_i, log_f = _mlstm_proj(p, h, u, cu, H)
+    # the kernel's layout [B, H, S, dh]; the gates [B, H, S]
+    hout, st = ops.mlstm_scan(
+        *(t.transpose(1, 2).contiguous() for t in (q, k, v, log_i, log_f)),
+        chunk=chunk, impl=impl, return_state=True)
+    hout = group_norm(hout.transpose(1, 2).reshape(b, s, ud), p["gn_w"], H)
+    out = (hout * F.silu(z)) @ p["down_proj"]
+    if return_state:
+        return x + out, st
+    return x + out
+
+
+def mlstm_block_step(p, x_t, cfg, state):
+    """Decode step. x_t [B,D]; state {'C','n','m','conv'}."""
+    h = rms_norm(x_t, p["ln_w"], 1e-5)
+    ud = p["conv_w"].shape[1]
+    H = cfg.num_heads
+    upg = h @ p["up_proj"]
+    u, z = upg[..., :ud], upg[..., ud:]
+    cu, conv_state = conv1d_step(u, state["conv"], p["conv_w"], p["conv_b"])
+    cu = F.silu(cu)
+    b = x_t.shape[0]
+    q, k, v, log_i, log_f = _mlstm_proj(p, h, u, cu, H)
+    hc, (C, n, m) = mlstm_cell_step(q, k, v, log_i, log_f,
+                                    (state["C"], state["n"], state["m"]))
+    hc = group_norm(hc.reshape(b, ud), p["gn_w"], H)
+    out = (hc.to(x_t.dtype) * F.silu(z)) @ p["down_proj"]
+    return x_t + out, {"C": C, "n": n, "m": m, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM — scalar-memory LSTM with recurrent weights (inherently sequential)
+# ---------------------------------------------------------------------------
+
+def slstm_block_template(d_model: int, num_heads: int) -> Dict:
+    dh = d_model // num_heads
+    pf = -(-4 * d_model // 3)  # post-FFN projection factor 4/3
+    return {
+        "ln_w": ParamSpec((d_model,), (None,), init="zeros"),
+        "w_in": ParamSpec((d_model, 4 * d_model), ("fsdp", "tensor")),
+        "b_in": ParamSpec((4 * d_model,), ("tensor",), init="zeros"),
+        "r_rec": ParamSpec((4, num_heads, dh, dh),
+                           (None, "heads", None, None), scale=0.5),
+        "gn_w": ParamSpec((d_model,), ("tensor",), init="ones"),
+        "ffn_ln_w": ParamSpec((d_model,), (None,), init="zeros"),
+        "ffn_up": ParamSpec((d_model, 2 * pf), ("fsdp", "tensor")),
+        "ffn_down": ParamSpec((pf, d_model), ("tensor", "fsdp")),
+    }
+
+
+def _slstm_scan(p, hx, num_heads: int, state):
+    """hx [B,S,4*D] precomputed input projections; sequential over S."""
+    b, s, d4 = hx.shape
+    d = d4 // 4
+    dh = d // num_heads
+    c, n, m, h = state
+    c, n, m = (t.float() for t in (c, n, m))
+    h = h.to(hx.dtype)
+    hs = []
+    for t in range(s):
+        zi = hx[:, t].reshape(b, 4, num_heads, dh)
+        rec = torch.einsum("bhd,khde->kbhe", h, p["r_rec"])
+        z_t = torch.tanh(zi[:, 0] + rec[0])
+        li = (zi[:, 1] + rec[1]).float()
+        lf = F.logsigmoid((zi[:, 2] + rec[2]).float())
+        o = torch.sigmoid(zi[:, 3] + rec[3])
+        m_new = torch.maximum(lf + m, li)
+        fg = torch.exp(lf + m - m_new)
+        ig = torch.exp(li - m_new)
+        c = fg * c + ig * z_t.float()
+        n = fg * n + ig
+        m = m_new
+        h = (o.float() * (c / torch.clamp(n, min=1e-6))).to(hx.dtype)
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(b, s, d) if hs else hx[..., :d]
+    return out, (c, n, m, h)
+
+
+def slstm_init_state(b: int, num_heads: int, d_model: int, *, device=None):
+    dh = d_model // num_heads
+    z = torch.zeros((b, num_heads, dh), dtype=torch.float32, device=device)
+    return (z, z, torch.full((b, num_heads, dh), NEG_INF, device=device),
+            torch.zeros((b, num_heads, dh), device=device))
+
+
+def slstm_block_forward(p, x, cfg, *, state=None, return_state=False):
+    b, s, d = x.shape
+    H = cfg.num_heads
+    h = rms_norm(x, p["ln_w"], 1e-5)
+    hx = h @ p["w_in"] + p["b_in"]
+    if state is None:
+        state = slstm_init_state(b, H, d, device=x.device)
+    hs, st = _slstm_scan(p, hx, H, state)
+    hs = group_norm(hs, p["gn_w"], H)
+    y = x + hs
+    # gated FFN (4/3 projection factor)
+    f = rms_norm(y, p["ffn_ln_w"], 1e-5)
+    pf = p["ffn_down"].shape[0]
+    up = f @ p["ffn_up"]
+    f = gelu(up[..., :pf]) * up[..., pf:]
+    out = y + f @ p["ffn_down"]
+    if return_state:
+        return out, st
+    return out
+
+
+def slstm_block_step(p, x_t, cfg, state):
+    out, st = slstm_block_forward(
+        p, x_t[:, None, :], cfg,
+        state=(state["c"], state["n"], state["m"], state["h"]),
+        return_state=True)
+    return out[:, 0, :], {"c": st[0], "n": st[1], "m": st[2], "h": st[3]}

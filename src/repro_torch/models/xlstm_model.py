@@ -1,0 +1,220 @@
+"""xLSTM language model (xlstm-350m): mLSTM and sLSTM blocks, serving path.
+
+PyTorch twin of the JAX package's ``repro.models.xlstm_model``. The model
+is attention-free: what a prompt leaves behind is the recurrent state
+(matrix memory ``C``, ``n``, ``m`` and the conv window per mLSTM block,
+scalar cells per sLSTM block), and a decode step is O(1) in the context
+length. ``prefill`` runs every mLSTM block's chunkwise scan through
+``ops.mlstm_scan`` (the CUDA kernel on the card, ``mlstm_impl='ref'`` for
+the plain chunked version anywhere) and keeps the final states;
+``decode_step`` advances them one token. Parameters are the JAX package's
+nested dict, the blocks of each kind stacked on a leading axis; blocks run
+in position order in a Python loop over contiguous runs (the JAX package
+scans each run). Computation is float32.
+
+Differences from the JAX model, each deliberate: ``decode_step`` updates
+the decode state in place (JAX returns a new tree); prefill computes the
+conv window from the last ``K-1`` positions only, the rows the JAX model
+slices from its full-length recomputation. ``forward`` and ``loss_fn``
+belong to training and are not ported yet (``ROADMAP.md``, "What is
+left").
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.common.types import ModelConfig
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.models.layers import (
+    ParamSpec,
+    count_template_params,
+    init_params,
+    rms_norm,
+    tree_map,
+)
+from repro_torch.models.ssm import (
+    NEG_INF,
+    mlstm_block_forward,
+    mlstm_block_step,
+    mlstm_block_template,
+    slstm_block_forward,
+    slstm_block_step,
+    slstm_block_template,
+)
+from repro_torch.models.transformer import stack_template
+
+_M_KEYS = ("m_C", "m_n", "m_m", "m_conv")
+_S_KEYS = ("s_c", "s_n", "s_m", "s_h")
+
+
+def block_kinds(cfg: ModelConfig) -> List[str]:
+    """Position i is sLSTM iff (i + 1) % slstm_every == 0 (xLSTM[7:1])."""
+    k = []
+    for i in range(cfg.num_layers):
+        if cfg.slstm_every and (i + 1) % cfg.slstm_every == 0:
+            k.append("slstm")
+        else:
+            k.append("mlstm")
+    return k
+
+
+def runs(kinds: List[str]) -> List[Tuple[str, int, int]]:
+    """Contiguous (kind, start_within_kind_stack, length) runs in order."""
+    out = []
+    idx = {"mlstm": 0, "slstm": 0}
+    i = 0
+    while i < len(kinds):
+        j = i
+        while j < len(kinds) and kinds[j] == kinds[i]:
+            j += 1
+        out.append((kinds[i], idx[kinds[i]], j - i))
+        idx[kinds[i]] += j - i
+        i = j
+    return out
+
+
+def _blocks(kinds: List[str]):
+    """(kind, index within its stack) of every block, in position order."""
+    for kind, start, length in runs(kinds):
+        for i in range(start, start + length):
+            yield kind, i
+
+
+class XLSTMModel:
+    def __init__(self, cfg: ModelConfig, mlstm_impl: str = "auto"):
+        if mlstm_impl not in IMPLS:
+            raise ValueError(f"unknown mlstm_impl {mlstm_impl!r} (expected "
+                             f"one of {IMPLS})")
+        self.cfg = cfg
+        #: ``ops`` impl of the mLSTM scan: 'auto' runs the CUDA kernel on
+        #: CUDA tensors, 'ref' the plain chunked version anywhere
+        self.mlstm_impl = mlstm_impl
+        self.kinds = block_kinds(cfg)
+        self.n_mlstm = self.kinds.count("mlstm")
+        self.n_slstm = self.kinds.count("slstm")
+
+    # -- params -----------------------------------------------------------
+    def template(self) -> Dict:
+        c = self.cfg
+        t = {
+            "embed": ParamSpec((c.vocab_size, c.d_model), ("tensor", None),
+                               fan_in_dims=(1,)),
+            "final_norm": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "lm_head": ParamSpec((c.d_model, c.vocab_size),
+                                 ("fsdp", "tensor")),
+            "mlstm": stack_template(
+                mlstm_block_template(c.d_model, c.num_heads, c.ssm_conv,
+                                     c.ssm_expand), self.n_mlstm),
+        }
+        if self.n_slstm:
+            t["slstm"] = stack_template(
+                slstm_block_template(c.d_model, c.num_heads), self.n_slstm)
+        return t
+
+    def init_params(self, seed: int, *, device="cuda"):
+        """Random parameters from ``seed`` on ``device`` (a
+        ``torch.Generator`` on that device draws them)."""
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return init_params(gen, self.template(), device=device)
+
+    def param_count(self) -> int:
+        return count_template_params(self.template())
+
+    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        return hidden @ params["lm_head"]
+
+    # -- serving -----------------------------------------------------------
+    def decode_state_shapes(self, batch: int) -> Dict[str, Tuple[int, ...]]:
+        c = self.cfg
+        ud = c.ssm_expand * c.d_model
+        dh_m = ud // c.num_heads
+        dh_s = c.d_model // c.num_heads
+        shapes = {
+            "m_C": (self.n_mlstm, batch, c.num_heads, dh_m, dh_m),
+            "m_n": (self.n_mlstm, batch, c.num_heads, dh_m),
+            "m_m": (self.n_mlstm, batch, c.num_heads),
+            "m_conv": (self.n_mlstm, batch, c.ssm_conv - 1, ud),
+        }
+        if self.n_slstm:
+            shapes.update({k: (self.n_slstm, batch, c.num_heads, dh_s)
+                           for k in _S_KEYS})
+        return shapes
+
+    def init_decode_state(self, batch: int, *, device="cuda"
+                          ) -> Dict[str, torch.Tensor]:
+        shapes = self.decode_state_shapes(batch)
+        st = {k: torch.zeros(s, dtype=torch.float32, device=device)
+              for k, s in shapes.items()}
+        st["m_m"].fill_(NEG_INF)
+        if self.n_slstm:
+            st["s_m"].fill_(NEG_INF)
+        return st
+
+    @torch.no_grad()
+    def decode_step(self, params, tokens: torch.Tensor,
+                    seq_lens: torch.Tensor, state: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """O(1) decode: recurrent state in, token ids out. ``state`` is
+        updated in place and returned. ``seq_lens`` is unused, as in the
+        JAX model (the state carries the position)."""
+        del seq_lens
+        c = self.cfg
+        x = params["embed"][tokens.long()]                      # [B, D]
+        for kind, i in _blocks(self.kinds):
+            lp = tree_map(lambda a: a[i], params[kind])
+            if kind == "mlstm":
+                x, st = mlstm_block_step(lp, x, c, {
+                    "C": state["m_C"][i], "n": state["m_n"][i],
+                    "m": state["m_m"][i], "conv": state["m_conv"][i]})
+                keys = zip(_M_KEYS, ("C", "n", "m", "conv"))
+            else:
+                x, st = slstm_block_step(lp, x, c, {
+                    "c": state["s_c"][i], "n": state["s_n"][i],
+                    "m": state["s_m"][i], "h": state["s_h"][i]})
+                keys = zip(_S_KEYS, ("c", "n", "m", "h"))
+            for skey, key in keys:
+                state[skey][i].copy_(st[key])
+        x = rms_norm(x, params["final_norm"], c.norm_eps)
+        next_tokens = self.logits(params, x).argmax(dim=-1).to(torch.int32)
+        return next_tokens, state
+
+    @torch.no_grad()
+    def prefill(self, params, tokens: torch.Tensor, seq_lens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Run the prompts ``tokens [B, S]`` once, keeping every block's
+        final state. Returns ``(first_tokens [B] int32, decode_state)``.
+
+        As in the JAX model, the state (the conv window included) is the
+        one at the end of the padded batch, not at each row's
+        ``seq_lens``; only the first token is read at ``seq_lens - 1``."""
+        c = self.cfg
+        b = tokens.shape[0]
+        x = params["embed"][tokens.long()]                      # [B, S, D]
+        state = self.init_decode_state(b, device=x.device)
+        for kind, i in _blocks(self.kinds):
+            lp = tree_map(lambda a: a[i], params[kind])
+            if kind == "mlstm":
+                x_in = x
+                x, (C, n, m) = mlstm_block_forward(lp, x_in, c,
+                                                   return_state=True,
+                                                   impl=self.mlstm_impl)
+                state["m_C"][i] = C
+                state["m_n"][i] = n
+                state["m_m"][i] = m
+                # conv state: last K-1 inputs of the up-projected stream
+                ud = lp["conv_w"].shape[1]
+                tail = rms_norm(x_in[:, -(c.ssm_conv - 1):], lp["ln_w"], 1e-5)
+                state["m_conv"][i] = tail @ lp["up_proj"][:, :ud]
+            else:
+                x, st = slstm_block_forward(lp, x, c, return_state=True)
+                for skey, val in zip(_S_KEYS, st):
+                    state[skey][i] = val
+        idx = (seq_lens.long() - 1).clamp(min=0)
+        last = x[torch.arange(b, device=x.device), idx]         # [B, D]
+        last = rms_norm(last, params["final_norm"], c.norm_eps)
+        first = self.logits(params, last).argmax(dim=-1).to(torch.int32)
+        return first, state
