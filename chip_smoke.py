@@ -44,8 +44,9 @@ order:
 7. **mlstm_parity** -- the mLSTM kernel against the plain chunked version
    on the card, ``h`` and the final ``(C, n, m)``: the JAX package's test
    shapes (``atol = rtol = 5e-4``), its gate extremes (3e-3), S that is no
-   multiple of the chunk, and the xLSTM run's shape (B=8, H=4, S=4096,
-   dh=512, chunk 64).
+   multiple of the chunk, at least one case for every ``(dh, chunk)`` the
+   wrapper instantiates (``HEAD_DIMS x CHUNKS``, 12 pairs), and the xLSTM
+   run's shape (B=8, H=4, S=4096, dh=512, chunk 64).
 8. **xlstm_serve** -- ``XLSTMModel`` of ``xlstm-350m`` at full width and
    depth (528 M float32 parameters from a fixed seed): 8 prompts of 4096
    tokens, one ``prefill`` and 31 greedy ``decode_step``s, once through
@@ -63,13 +64,23 @@ order:
    around each launch, L2 flushed before it, median of 30 launches; the
    bound is the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the card's peak for their type (int32 for the
-   datapath, float32 for attention and the mLSTM scan).
+   datapath, float32 FMA for attention; for the mLSTM scan three TF32
+   tensor-core products per float32 product, with its float32-FMA bound
+   beside it as ``fp32_fma_bound_ms``).
 
-Float32 products run in full float32 (TF32 off). Each phase prints one JSON
-line. Then come the card's name and power limit (``nvidia-smi``), the
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero before the last line; with no CUDA device, or outside
-a checkout, it fails at once.
+Float32 products of the plain versions run in full float32 (TF32 off).
+Each phase prints one JSON line. Then come the card's name and power limit
+(``nvidia-smi``), the ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero before the last line; with
+no CUDA device, or outside a checkout, it fails at once.
+
+``python3 chip_smoke.py --mlstm-ab [--serve] A.cu B.cu ...`` runs only the
+mLSTM scan's checks for other versions of ``csrc/mlstm_scan.cu`` (an
+earlier commit's, unpacked under ``build/``; stages of a rewrite): it
+builds each source into its own library, runs phase 7 against each (and
+phase 8 through each, with ``--serve``) and times each at the run's shape
+as phase 9 does, in turns (A B ... B A, twice), in one process on one
+card.
 """
 from __future__ import annotations
 
@@ -92,8 +103,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 # maximum SM clock, both read from the card.
 INT32_OPS_PER_SM_CLOCK = 64
 # float32 FMA: 128 lanes per SM, 2 operations each, per clock (the same
-# table); the attention and mLSTM kernels' operations are of that type.
+# table); the attention kernels' operations are of that type.
 FP32_OPS_PER_SM_CLOCK = 256
+# TF32 on the tensor cores, dense: 1024 multiply-adds per SM per clock
+# (H100 SXM: 494.7 TFLOP/s at the data sheet's 1830 MHz boost, 132 SMs).
+# The mLSTM kernel takes each float32 product as three TF32 products
+# (hi.hi + hi.lo + lo.hi), so its bound is three times the function's
+# operations at this rate; its float32-FMA bound is printed beside it.
+TF32_OPS_PER_SM_CLOCK = 2048
+MLSTM_TF32_PASSES = 3
 ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
 # the JAX package's bars for its Pallas mLSTM kernel (tests/test_kernels.py)
 MLSTM_TOL = dict(atol=5e-4, rtol=5e-4)
@@ -884,7 +902,8 @@ def mlstm_parity(xs: XlstmSize, cfg, dev, torch, ops):
     dh_run = cfg.ssm_expand * cfg.d_model // cfg.num_heads
     run = dict(b=xs.batch, h=cfg.num_heads, s=xs.prompt, dh=dh_run)
     # (label, shape, chunk, extreme): tests/test_kernels.py's shapes, its
-    # gate extremes, ragged S, and the run's shape
+    # gate extremes, ragged S, the (dh, chunk) pairs those leave out, and
+    # the run's shape
     cases = [("b1h1-s64-dh32-c16", dict(b=1, h=1, s=64, dh=32), 16, False),
              ("b2h3-s64-dh32-c32", dict(b=2, h=3, s=64, dh=32), 32, False),
              ("b1h2-s128-dh64-c16", dict(b=1, h=2, s=128, dh=64), 16, False),
@@ -898,6 +917,14 @@ def mlstm_parity(xs: XlstmSize, cfg, dev, torch, ops):
               False),
              ("ragged-b1h4-s1000-dh512-c64", dict(b=1, h=4, s=1000,
                                                   dh=dh_run), 64, False),
+             ("b2h2-s192-dh16-c64", dict(b=2, h=2, s=192, dh=16), 64, False),
+             ("ragged-b1h3-s160-dh32-c64", dict(b=1, h=3, s=160, dh=32), 64,
+              False),
+             ("b2h1-s96-dh64-c32", dict(b=2, h=1, s=96, dh=64), 32, False),
+             ("ragged-b1h2-s300-dh512-c16", dict(b=1, h=2, s=300,
+                                                 dh=dh_run), 16, False),
+             ("b2h2-s256-dh512-c32", dict(b=2, h=2, s=256, dh=dh_run), 32,
+              False),
              ("run", run, xs.chunk, False)]
     results = []
     for label, shape, chunk, extreme in cases:
@@ -912,15 +939,31 @@ def mlstm_parity(xs: XlstmSize, cfg, dev, torch, ops):
         ok = all(torch.isfinite(a).all() and torch.allclose(a, b, **tol)
                  for a, b in pairs.values())
         results.append(dict(kernel="mlstm_scan", case=label, close=bool(ok),
+                            dh=shape["dh"], chunk=chunk,
                             tol=tol, max_abs_err=max(errs.values()),
                             max_abs_err_by_output=errs))
+        if label == "run":  # both against the plain version in float64
+            h64, s64 = ops.mlstm_scan(*(x.double() for x in case),
+                                      chunk=chunk, impl="ref",
+                                      return_state=True)
+            results[-1]["vs_f64"] = {
+                who: {k: float((a.double() - b).abs().max())
+                      for k, a, b in zip(("h", "C"), (hh, st[0]),
+                                         (h64, s64[0]))}
+                for who, hh, st in (("kernel", hk, sk), ("plain", hr, sr))}
+            del h64, s64
         check(ok, f"mlstm_scan [{label}] differs from its plain version "
                   f"(max abs errors {errs}, tolerance {tol})")
+    pairs = {(r["dh"], r["chunk"]) for r in results}
+    check(len(pairs) == 12, f"mlstm_parity reaches {len(pairs)} of the 12 "
+                            "(dh, chunk) instantiations")
     emit({"phase": "mlstm_parity", "cases": len(results),
+          "instantiations": len(pairs),
           "all_close": all(r["close"] for r in results),
           "tol": MLSTM_TOL, "tol_gate_extremes": MLSTM_TOL_EXTREME,
           "max_abs_err": {r["case"]: r["max_abs_err_by_output"]
-                          for r in results}})
+                          for r in results},
+          "run_vs_f64": results[-1]["vs_f64"]})
     return results
 
 
@@ -1217,6 +1260,29 @@ def bound(bytes_: int, ops_: int, ops_per_s: float):
             bytes_)
 
 
+def mlstm_timing_case(xs: XlstmSize, gen, dev, torch):
+    """Inputs of one mLSTM block of the xLSTM prefill, its label, the
+    function's operations and bytes. Per (row, head, chunk): q kT and
+    (S o qk) v over the causal triangle, c(c+1)/2 dh multiply-adds each (the
+    gate matrix is -1e30 above the diagonal), q C and (k w)T v, c dh^2 each;
+    q, k, v, the gates read once, h and the final state written once. No
+    single PyTorch call computes an mLSTM."""
+    from repro_torch.configs import get_config
+
+    xcfg = get_config(xs.arch)
+    dh = xcfg.ssm_expand * xcfg.d_model // xcfg.num_heads
+    mc = mlstm_case(gen, dev, torch, b=xs.batch, h=xcfg.num_heads,
+                    s=xs.prompt, dh=dh)
+    c, bh = xs.chunk, xs.batch * xcfg.num_heads
+    chunks = -(-xs.prompt // c)
+    flops = 2 * bh * chunks * (c * (c + 1) * dh + 2 * c * dh * dh)
+    nbytes = 4 * (4 * mc[0].numel() + 2 * mc[3].numel()
+                  + bh * (dh * dh + dh + 1))
+    label = (f"B={xs.batch} H={xcfg.num_heads} S={xs.prompt} dh={dh} "
+             f"chunk={c}")
+    return mc, label, flops, nbytes
+
+
 def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
            tt):
     rng = np.random.default_rng(29)
@@ -1354,31 +1420,137 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
           lib_fn=lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True),
           ops_rate=frate)
     del fq, fk, fv, pc, q, pool
-    # mlstm_scan: one mLSTM block of the xLSTM prefill. Per (row, head,
-    # chunk): q kT and (S o qk) v over the causal triangle, c(c+1)/2 dh FMA
-    # each (the gate matrix is -1e30 above the diagonal), q C and (k w)T v,
-    # c dh^2 FMA each; q, k, v, the gates read once, h and the final state
-    # written once. No single PyTorch call computes an mLSTM.
-    xcfg = get_config(xs.arch)
-    dh = xcfg.ssm_expand * xcfg.d_model // xcfg.num_heads
-    mc = mlstm_case(gen, dev, torch, b=xs.batch, h=xcfg.num_heads,
-                    s=xs.prompt, dh=dh)
-    c, bh = xs.chunk, xs.batch * xcfg.num_heads
-    chunks = -(-xs.prompt // c)
-    flops = 2 * bh * chunks * (c * (c + 1) * dh + 2 * c * dh * dh)
-    nbytes = 4 * (4 * mc[0].numel() + 2 * mc[3].numel()
-                  + bh * (dh * dh + dh + 1))
-    entry("mlstm_scan", f"B={xs.batch} H={xcfg.num_heads} S={xs.prompt} "
-          f"dh={dh} chunk={c}",
+    # mlstm_scan: one mLSTM block of the xLSTM prefill
+    mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
+    c = xs.chunk
+    trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
+    entry("mlstm_scan", label,
           lambda: ops.mlstm_scan(*mc, chunk=c, impl="cuda",
                                  return_state=True),
           lambda: ops.mlstm_scan(*mc, chunk=c, impl="ref",
                                  return_state=True),
-          (nbytes, flops), ops_rate=frate)
+          (nbytes, MLSTM_TF32_PASSES * flops), ops_rate=trate)
+    out["mlstm_scan"][-1].update(
+        function_flop=flops,
+        fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
     emit({"phase": "timing", "runs": TIMED_RUNS,
           "int32_ops_per_s": rate, "fp32_ops_per_s": frate,
+          "tf32_ops_per_s": trate,
           "hbm_bytes_per_s": HBM_BYTES_PER_S, "kernels": out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# --mlstm-ab: phase 7 and the mLSTM timing for other builds of the kernel
+# ---------------------------------------------------------------------------
+
+def build_mlstm_variants(paths, _build):
+    """Compile each ``mlstm_scan.cu`` version into its own library under
+    ``build/ab/`` (one ``nvcc`` each, all at once) and load it."""
+    import ctypes
+    import hashlib
+
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, jobs = _build._nvcc(), []
+    t0 = time.perf_counter()
+    for p in paths:
+        src = Path(p).resolve()
+        tag = hashlib.sha256(src.read_bytes()
+                             + " ".join(_build.NVCC_FLAGS).encode())
+        so = out_dir / f"{src.stem}_{tag.hexdigest()[:12]}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+               str(so), str(src)]
+        jobs.append((p, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for p, so, proc in jobs:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on {p}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.libra_mlstm_scan.argtypes = _build.SIGNATURES["libra_mlstm_scan"]
+        lib.libra_mlstm_scan.restype = ctypes.c_int
+        libs[p] = lib
+        ptxas, run_kernel = [], False  # ptxas -v of <64, 512>
+        for ln in log.splitlines():
+            if "Compiling entry" in ln:
+                run_kernel = "kernelILi64ELi512E" in ln
+            elif run_kernel and ("Used" in ln or "spill" in ln):
+                ptxas.append(ln.strip())
+        emit({"ab_build": p, "ptxas": ptxas,
+              "sass_64_512": sass_mix(so, nvcc, 64, 512)})
+    emit({"ab_build_seconds": time.perf_counter() - t0})
+    return libs
+
+
+def sass_mix(so: Path, nvcc: str, ch: int, hd: int):
+    """The 20 commonest opcodes (with their first modifier) in the code of
+    ``mlstm_scan_kernel<ch, hd>`` in a built library (``cuobjdump``): a
+    static count, and the loops are unrolled."""
+    import re
+
+    dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                           str(so)], capture_output=True, text=True).stdout
+    name, inside, counts = f"mlstm_scan_kernelILi{ch}ELi{hd}E", False, {}
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                    r"([A-Z][A-Z0-9.]*)")
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            inside = name in ln
+            continue
+        m = op.search(ln) if inside else None
+        if m:
+            key = ".".join(m.group(1).split(".")[:2])
+            counts[key] = counts.get(key, 0) + 1
+    return sorted(counts.items(), key=lambda kv: -kv[1])[:20]
+
+
+def mlstm_ab(paths, dev, torch, np, ops, _build, serve=False) -> int:
+    """Phase 7 and the run-shape timing through each build (the wrapper's
+    library swapped); with ``serve``, phase 8 too."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm_scan as kmlstm
+
+    libs = build_mlstm_variants(paths, _build)
+    xs = XlstmSize()
+    passed = {}
+    for p, lib in libs.items():
+        _build._LIB = lib
+        emit({"ab_variant": p})
+        try:
+            mlstm_parity(xs, get_config(xs.arch), dev, torch, ops)
+            if serve:
+                xlstm_serve(xs, dev, torch, np, kmlstm)
+            passed[p] = True
+        except Exception as exc:  # reported; the other builds still run
+            emit({"ab_variant": p, "failed": str(exc)})
+            passed[p] = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
+
+    def scan(lib):
+        _build._LIB = lib
+        return ops.mlstm_scan(*mc, chunk=xs.chunk, impl="cuda",
+                              return_state=True)
+    times = {p: [] for p in libs}
+    for _ in range(2):
+        for p in list(libs) + list(libs)[::-1]:
+            times[p].append(time_ms(lambda: scan(libs[p]), torch))
+    trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
+    frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit({"phase": "mlstm_ab", "variant": label, "card": smi,
+          "runs_per_time": TIMED_RUNS,
+          "bound_ms": bound(nbytes, MLSTM_TF32_PASSES * flops, trate)[0],
+          "fp32_fma_bound_ms": bound(nbytes, flops, frate)[0],
+          "ms": {p: statistics.median(t) for p, t in times.items()},
+          "ms_each": times, "parity": passed})
+    return 0 if all(passed.values()) else 1
 
 
 # ---------------------------------------------------------------------------
@@ -1406,6 +1578,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--mlstm-ab"]:
+        with_serve = sys.argv[2:3] == ["--serve"]
+        srcs = sys.argv[2 + with_serve:]
+        check(srcs, "--mlstm-ab takes mlstm_scan.cu sources")
+        return mlstm_ab(srcs, dev, torch, np, ops, _build, with_serve)
     size = Size()
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
@@ -1468,6 +1645,8 @@ def main() -> int:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "variant": first["variant"],
         })
+        if "fp32_fma_bound_ms" in first:
+            kernels[-1]["fp32_fma_bound_ms"] = first["fp32_fma_bound_ms"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// Stabilised chunkwise-parallel mLSTM scan (sm_90a, float32).
+// Stabilised chunkwise-parallel mLSTM scan (sm_90a) on the tensor cores.
 //
 // Replaces the Pallas kernel `mlstm_scan` (body `_mlstm_kernel`) of
 // src/repro/kernels/mlstm_scan.py:73 (:26); semantics are those of
@@ -10,87 +10,416 @@
 // of the chunk: rows past S read as the JAX function's padding (q, k, v 0,
 // log_i -1e30, log_f 0) and are not written.
 //
-// Design. The TPU kernel holds the whole C [dh, dh] in VMEM; at dh = 512
-// that is 1 MiB, and a block has at most 227 KB of shared memory. So C's
-// value columns are split: the grid is (B*H, dh/DV), each block keeps its
-// [dh, DV] tile of C in shared memory (DV = 64: 128 KB) and walks the
-// chunks of its (row, head) in order, the TPU's "arbitrary" chunk axis. Per
-// chunk, 256 threads (16 x 16, each a 4 x 4 tile at chunk 64) do:
-//   0. the gates: cumsum A of log_f, the row stabiliser
-//      m_loc = max(max_{s<=t} A_t - A_s + li_s, A_t + m), the end-of-chunk
-//      m_new and decay, the key weights exp(A_T - A_s + li_s - m_new);
-//   1. q kT [c, c] and q C [c, DV] in one pass over the head dim, q and k
-//      staged through shared memory DK = 64 dims at a time (k pre-scaled by
-//      1/sqrt(dh), as the Pallas kernel does), and q.n;
-//   2. h = ((S o qk) v + exp(A + m - m_loc) q C) /
-//          max(|rowsum(S o qk) + exp(A + m - m_loc) q.n|, exp(-m_loc));
-//   3. C = decay C + (k w)T v on the block's tile, DU = 64 key dims at a
-//      time, and n = decay n + sum_s k w.
-// Every block recomputes the gates, q kT, q.n and n for itself (one q kT
-// is c/dh = 1/8 of q C at dh 512); only the block of value tile 0 writes
-// n and m. Shared memory at dh 512, chunk 64:
-// C tile 131072 B, q/k slices 34816 B (reused for the weighted k of step
-// 3), v tile 16384 B, (S o qk)T 17408 B, gates, n and m 3856 B: 203536 B
-// of the 232448 a block may have, one block per SM, opted in with
+// Design. The TPU kernel holds the whole C [dh, dh] in VMEM, 1 MiB at dh
+// 512; a block has at most 227 KB of shared memory. So the grid is
+// (B*H, dh/DV): each block keeps a [dh, DV] tile of C (DV = 64) and walks
+// the chunks of its (row, head) in order, the TPU's "arbitrary" chunk axis.
+// Per chunk, 8 warps:
+//   0. warp 0: the gates, cumsum A of log_f, the row stabiliser m_loc (a
+//      shuffle max-scan), the end-of-chunk m_new and decay, the key
+//      weights w = exp(A_T - A_s + li_s - m_new) / sqrt(dh);
+//   1. q kT [c, c] and q C [c, DV] in one k-loop over the head dim, 64 dims
+//      a slice, and q.n;
+//   2. P = exp(W - m_loc) q kT / sqrt(dh) through shared memory, P v
+//      accumulated onto e_inter q C, h = that / max(|den|, exp(-m_loc));
+//   3. C = decay C + kT (w v) in bands of 128 rows of C, n = decay n + kT w.
+// The four products run on the tensor cores, mma.sync m16n8k8 TF32 with
+// each float32 operand split as hi + lo (three products a step): float32
+// accuracy, held to the plain version's bars (5e-4) by chip_smoke.py. The
+// q/k slices and the k bands stream through two slots by cp.async, the
+// next one in flight while the current one is used; v and the next chunk's
+// gates ride along. Every tile is padded or swizzled so that a fragment
+// load hits 32 banks.
+//
+// Why mma.sync and not wgmma: wgmma reads its B operand from shared
+// memory. The B operand of q C is the block's C tile, 128 KB in float32 at
+// dh 512; split copies C_hi and C_lo would take 256 KB of the 227 KB.
+// mma.sync takes both operands from registers: the split is made as a
+// fragment is loaded, and C stays one float32 copy.
+//
+// Shared memory at dh 512, chunk 64: C 131072 B (unpadded, swizzled), two
+// slots of 34816 B (q and k slices [64][68]; P [64][68]; a raw k band
+// [64][136]), the v tile 18432 B ([64][72]), gates, n and m 3856 B:
+// 222992 B of the 232448 a block may have, one block per SM, opted in with
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
-// Numerics: accurate expf, float32 FMA, no tensor cores; -1e30 for masked
-// and padded steps, as the TPU kernel.
-//
 // Bound on the H100: operations. Per (row, head, chunk) the function does
-// 2 (c^2 dh + c^2 dh + c dh^2 + c dh^2) FLOP (q kT, (S o qk) v, q C,
-// (k w)T v): 75.5 MFLOP at c 64, dh 512, on 4 x c x dh x 4 B of q, k, v
-// and h, 2.4 kFLOP per byte. This first version recomputes q kT in each of
-// the dh/DV blocks of a head (1.39x the work at dh 512), loads its slices
-// with no overlap of the next slice's loads with this slice's math, and
-// uses plain float32 FMA: no wgmma, no TMA.
+// 2 (c(c+1)/2 dh + c(c+1)/2 dh + c dh^2 + c dh^2) FLOP over the causal
+// triangle (q kT, P v, q C, kT (w v)); taken as three TF32 products at 2048
+// TF32 operations per SM per clock, 0.82 ms at B=8 H=4 S=4096 dh=512 (the
+// bytes, 1.11 GB, take 0.33 ms). What holds it back (PERF.md, row 7): the
+// chunks of a (row, head) run in order at one block (8 warps) per SM, with
+// about 30 barriers a chunk; q kT is recomputed in each of the dh/64 = 8
+// blocks of a head (20 of step 1's 52 tiles); the split takes five
+// CUDA-core instructions per operand element, about four per mma.sync in
+// step 1's loop with the fragment loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace libra {
 
 constexpr float kMlstmNegInf = -1e30f;
-constexpr int kMlstmThreads = 256;  // 16 x 16: ty rows, tx columns
+constexpr int kMlstmThreads = 256;  // 8 warps
 
 template <int CH, int HD>
 struct MlstmTile {
   static constexpr int DV = HD < 64 ? HD : 64;  // value columns per block
-  static constexpr int DK = HD < 64 ? HD : 64;  // q/k dims staged per step 1
-  static constexpr int DU = HD < 64 ? HD : 64;  // key dims per step 3
-  static constexpr int RT = CH / 16;            // chunk rows per thread
-  static constexpr int ST = CH / 16;            // keys per thread (q kT)
-  static constexpr int CT = DV / 16;            // value columns per thread
-  static constexpr int UT = DU / 16;            // key dims per thread (step 3)
-  static constexpr int LD = CH + 4;             // padded row of a [*, CH] tile
+  static constexpr int DK = HD < 64 ? HD : 64;  // q/k dims per step 1 slice
+  static constexpr int DU = HD < 128 ? HD : 128;  // rows of C per step 3 band
+  // row strides (floats): = 4 mod 32 for tiles read as A [m][k] or as B
+  // [n][k], = 8 or 24 mod 32 for tiles read as B [k][n] or as A [k][m]
+  static constexpr int LDQ = DK + 4;            // q, k slice [CH][LDQ]
+  static constexpr int LDP = CH + 4;            // P [CH][LDP]
+  static constexpr int LDV = DV + 8;            // v tile [CH][LDV]
+  static constexpr int LDU = DU + 8;            // raw k band [CH][LDU]
+  // steps 1 and 2: q kT [CH, CH] (NK1 8-column tiles) and q C [CH, DV]
+  // (NC1) over WM1 x WN1 warps; a warp takes TM1 16-row tiles by TK1 q kT
+  // and TC1 q C column tiles, columns strided by WN1
+  static constexpr int MT1 = CH / 16, NK1 = CH / 8, NC1 = DV / 8;
+  static constexpr int WM1 = MT1 < 2 ? MT1 : 2, WN1 = 8 / WM1;
+  static constexpr int TM1 = MT1 / WM1;
+  static constexpr int TK1 = (NK1 + WN1 - 1) / WN1;
+  static constexpr int TC1 = (NC1 + WN1 - 1) / WN1;
+  // step 3 over a [DU, DV] band of C: WM3 x WN3 warps, TM3 x TN3 tiles each
+  static constexpr int MT3 = DU / 16, NT3 = DV / 8;
+  static constexpr int WM3 = MT3 < 4 ? MT3 : 4, WN3 = 8 / WM3;
+  static constexpr int TM3 = MT3 / WM3, TN3 = (NT3 + WN3 - 1) / WN3;
+  // the chunk's operands stream through two slots of shared memory, in
+  // this order: NQ q/k slices (step 1), NU raw k bands (step 3); the next
+  // one is copied (cp.async) while the current one is used, and P (step 2)
+  // takes the slot of the last slice
+  static constexpr int NQ = HD / DK, NU = HD / DU;
+  static constexpr int XQ = 2 * CH * LDQ, XP = CH * LDP, XU = CH * LDU;
+  static constexpr int kSlot = XQ > XP ? (XQ > XU ? XQ : XU)
+                                       : (XP > XU ? XP : XU);
   // offsets in floats into dynamic shared memory
-  static constexpr int kC = 0;                  // C tile [HD][DV]
-  static constexpr int kQ = kC + HD * DV;       // q slice, transposed [DK][LD]
-  static constexpr int kK = kQ + DK * LD;       // k slice, transposed [DK][LD]
-  static constexpr int kKW = kQ;                // weighted k [CH][DU] (step 3)
-  static constexpr int kV = kK + DK * LD;       // v tile [CH][DV]
-  static constexpr int kP = kV + CH * DV;       // (S o qk), transposed [CH][LD]
-  static constexpr int kA = kP + CH * LD;       // gates, 7 x [CH]
+  static constexpr int kC = 0;                  // C tile [HD][DV], swizzled
+  static constexpr int kX = kC + HD * DV;       // two slots
+  static constexpr int kV = kX + 2 * kSlot;     // v tile [CH][LDV]
+  static constexpr int kA = kV + CH * LDV;      // gates, 7 x [CH]
   static constexpr int kN = kA + 7 * CH;        // n [HD]
   static constexpr int kS = kN + HD;            // m, m_new, decay
   static constexpr int kFloats = kS + 4;
+  static_assert((NQ + NU) % 2 == 0, "a chunk's tiles start in slot 0");
+  static_assert(CH <= 64, "the gate prologue: two rows per lane of a warp");
   static_assert(CH % 16 == 0 && HD % 16 == 0, "chunk and dh: multiples of 16");
   static_assert(HD % DV == 0 && HD % DK == 0 && HD % DU == 0, "dh tiling");
-  static_assert(CH * DU <= 2 * DK * LD, "weighted k must fit the q/k slices");
+  static_assert(TM1 <= 2 && WM1 * WN1 == 8, "steps 1-2 warp tiling");
+  static_assert(WM3 * WN3 == 8 && MT3 % WM3 == 0, "step 3 warp tiling");
+  static_assert(kFloats * 4 <= 232448, "shared memory of one block");
 };
 
-// N consecutive floats of shared memory, 16- or 8-byte loads where N allows
+// ---- split-TF32 products on the tensor cores --------------------------------
+// x = hi + lo + r with hi = tf32(x), lo = tf32(x - hi), both rounded to
+// nearest (ties away) to a 10-bit mantissa as cvt.rna.tf32.f32 rounds, and
+// |r| <= 2^-22 |x|. A product is taken as lo.hi + hi.lo + hi.hi (lo.lo,
+// below 2^-22 of it, is dropped): three mma.sync per 16 x 8 x 8 step.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  // cvt.rna.tf32.f32's rounding for finite x in two integer operations;
+  // cvt itself compiles to a longer sequence that also guards Inf and NaN
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&r)[N]) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x; r[1] = t.y;
-  } else {
+__device__ __forceinline__ void split_tf32(const float (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) r[i] = p[i];
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32_rna(x[i]);
+    lo[i] = tf32_rna(x[i] - __uint_as_float(hi[i]));
   }
+}
+
+// D (16 x 8) += A (16 x 8) B (8 x 8) where p (warp-uniform); lane = 4 g + t
+// holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k = t, n = g),
+// (t + 4, g); D (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// Predicated, not branched: a skipped product keeps the code one block.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2], bool p) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "@p mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "r"((int)p));
+}
+
+struct FragA {  // a split A fragment
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // a split B fragment
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b (if p): three TF32 products, float32 accumulation in the
+// tensor core
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b, bool p = true) {
+  mma_tf32(d, a.lo, b.hi, p);
+  mma_tf32(d, a.hi, b.lo, p);
+  mma_tf32(d, a.hi, b.hi, p);
+}
+
+// The lane's A fragment at (m0, k0) of a tile stored [m][k] (row stride
+// ld = 4 mod 32 floats: the 32 lanes hit 32 banks) ...
+__device__ __forceinline__ void load_a(FragA& f, const float* p, int ld,
+                                       int m0, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* r0 = p + (m0 + g) * ld + k0 + t;
+  const float* r1 = r0 + 8 * ld;
+  const float x[4] = {r0[0], r1[0], r0[4], r1[4]};
+  split_tf32(x, f.hi, f.lo);
+}
+
+// ... and of a tile stored transposed, [k][m] (ld = 8 mod 32)
+__device__ __forceinline__ void load_at(FragA& f, const float* p, int ld,
+                                        int m0, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* c0 = p + (k0 + t) * ld + m0 + g;
+  const float* c1 = c0 + 4 * ld;
+  const float x[4] = {c0[0], c0[8], c1[0], c1[8]};
+  split_tf32(x, f.hi, f.lo);
+}
+
+// The lane's B fragment at (k0, n0) of a tile stored [k][n] (ld = 8 mod
+// 32) ...
+__device__ __forceinline__ void load_b(FragB& f, const float* p, int ld,
+                                       int k0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* c = p + (k0 + t) * ld + n0 + g;
+  const float x[2] = {c[0], c[4 * ld]};
+  split_tf32(x, f.hi, f.lo);
+}
+
+// ... and of a tile stored transposed, [n][k] (ld = 4 mod 32)
+__device__ __forceinline__ void load_bt(FragB& f, const float* p, int ld,
+                                        int k0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* r = p + (n0 + g) * ld + k0 + t;
+  const float x[2] = {r[0], r[4]};
+  split_tf32(x, f.hi, f.lo);
+}
+
+// The C tile [HD][DV] is stored unpadded, its columns XOR-swizzled in
+// groups of 8 by the row, so that a B fragment (rows t, t + 4, columns g)
+// and a D fragment's float2 (rows g, g + 8, columns 2t) hit 32 banks. The
+// swizzle depends on the row mod 8 only.
+template <int DV>
+__device__ __forceinline__ int cswz(int d) {
+  return DV >= 32 ? (d & 3) << 3 : ((d >> 1) & 1) << 3;
+}
+
+template <int DV>
+__device__ __forceinline__ int cidx(int d, int j) {
+  return d * DV + (j ^ cswz<DV>(d));
+}
+
+// B fragment at rows k0 (a multiple of 8), columns n0 of the C tile
+template <int DV>
+__device__ __forceinline__ void load_b_c(FragB& f, const float* cs, int k0,
+                                         int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* c = cs + (k0 + t) * DV + ((n0 + g) ^ cswz<DV>(t));
+  const float x[2] = {c[0], c[4 * DV]};
+  split_tf32(x, f.hi, f.lo);
+}
+
+// ---- cp.async: copies into shared memory that do not hold the thread; a
+// copy with full = false writes zeros (rows past S) ---------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying W columns from column d0 of CH rows from row c0 of x
+// ([S][HD] at xb) into dst (row stride ld); rows past s_len read as 0.
+template <int CH, int HD, int W>
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* xb,
+                                          int c0, int d0, int s_len,
+                                          int tid) {
+#pragma unroll
+  for (int e = tid; e < CH * W / 4; e += kMlstmThreads) {
+    const int t = e / (W / 4), d = 4 * (e - t * (W / 4));
+    const bool in = c0 + t < s_len;
+    cp_async16(dst + t * ld + d, xb + (int64_t)(in ? c0 + t : 0) * HD + d0 + d,
+               in);
+  }
+}
+
+// A warp's i-th 16-row tile in steps 1-2: wm and MT1 - 1 - wm (TM1 = 2),
+// so that the q kT tiles above the diagonal, which it skips, even out.
+template <int CH, int HD>
+__device__ __forceinline__ int step1_mtile(int wm, int i) {
+  using T = MlstmTile<CH, HD>;
+  return i == 0 ? wm : T::MT1 - 1 - wm;
+}
+
+// Step 1 on one slice of DK head dims: qk += q kT and qc += q C over head
+// dims d0 .. d0 + DK, q and k [CH][DK] (row LDQ), C rows d0 .. d0 + DK.
+// The tensor core adds each product into its accumulator truncated: over
+// 64 steps of 8 at dh 512 a running sum drifts towards zero (3x the plain
+// version's error on h). So a slice's products go into zeroed accumulators,
+// added to qk and qc in float32, rounded to nearest.
+template <int CH, int HD>
+__device__ __forceinline__ void qk_qc_slice(
+    float (&qk)[MlstmTile<CH, HD>::TM1][MlstmTile<CH, HD>::TK1][4],
+    float (&qc)[MlstmTile<CH, HD>::TM1][MlstmTile<CH, HD>::TC1][4],
+    const float* qs, const float* ks, const float* cs, int d0, int warp,
+    int lane) {
+  using T = MlstmTile<CH, HD>;
+  constexpr int TM = T::TM1, TK = T::TK1, TC = T::TC1, WN = T::WN1;
+  const int wm = warp % T::WM1, wn = warp / T::WM1;
+  float sk[TM][TK][4], sc[TM][TC][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int j = 0; j < TK; ++j) sk[i][j][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) sc[i][j][e] = 0.f;
+    }
+#pragma unroll
+  for (int k0 = 0; k0 < T::DK; k0 += 8) {
+    FragA a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      load_a(a[i], qs, T::LDQ, step1_mtile<CH, HD>(wm, i) * 16, k0, lane);
+#pragma unroll
+    for (int j = 0; j < TK; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NK1 % WN != 0 && nt >= T::NK1) continue;
+      FragB b;
+      load_bt(b, ks, T::LDQ, k0, nt * 8, lane);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)  // tiles wholly above the diagonal: 0
+        mma3(sk[i][j], a[i], b, nt * 8 < step1_mtile<CH, HD>(wm, i) * 16 + 16);
+    }
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NC1 % WN != 0 && nt >= T::NC1) continue;
+      FragB b;
+      load_b_c<T::DV>(b, cs, d0 + k0, nt * 8, lane);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) mma3(sc[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int j = 0; j < TK; ++j) qk[i][j][e] += sk[i][j][e];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) qc[i][j][e] += sc[i][j][e];
+    }
+}
+
+// Step 2's P v: qc (already e_inter q C) += P [CH][CH] (row LDP) v [CH][DV]
+// (row LDV). P is 0 right of the diagonal: a 16-row tile stops at its last
+// row's key.
+template <int CH, int HD>
+__device__ __forceinline__ void pv_product(
+    float (&qc)[MlstmTile<CH, HD>::TM1][MlstmTile<CH, HD>::TC1][4],
+    const float* ps, const float* vs, int warp, int lane) {
+  using T = MlstmTile<CH, HD>;
+  constexpr int TM = T::TM1, WN = T::WN1;
+  const int wm = warp % T::WM1, wn = warp / T::WM1;
+#pragma unroll
+  for (int k0 = 0; k0 < CH; k0 += 8) {
+    FragA a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      load_a(a[i], ps, T::LDP, step1_mtile<CH, HD>(wm, i) * 16, k0, lane);
+#pragma unroll
+    for (int j = 0; j < T::TC1; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NC1 % WN != 0 && nt >= T::NC1) continue;
+      FragB b;
+      load_b(b, vs, T::LDV, k0, nt * 8, lane);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        mma3(qc[i][j], a[i], b, k0 < step1_mtile<CH, HD>(wm, i) * 16 + 16);
+    }
+  }
+}
+
+// Step 3 on one band of C: rows u0 .. u0 + DU of the [HD][DV] tile become
+// decay C + kw^T v, kw [CH][DU] (row LDU) and v [CH][DV] (row LDV).
+template <int CH, int HD>
+__device__ __forceinline__ void update_c_band(float* cs, const float* kw,
+                                              const float* vs, int u0,
+                                              float decay, int warp,
+                                              int lane) {
+  using T = MlstmTile<CH, HD>;
+  constexpr int DV = T::DV, TM = T::TM3, TN = T::TN3, WN = T::WN3;
+  const int wm = warp % T::WM3, wn = warp / T::WM3;
+  if (T::NT3 < WN && wn >= T::NT3) return;  // no tile for this warp
+  const int g = lane >> 2, t = lane & 3, sw = cswz<DV>(g);
+  float acc[TM][TN][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NT3 % WN != 0 && nt >= T::NT3) continue;
+      float* c = cs + (u0 + (wm * TM + i) * 16 + g) * DV +
+                 ((nt * 8 + 2 * t) ^ sw);
+      const float2 lo = *reinterpret_cast<const float2*>(c);
+      const float2 hi = *reinterpret_cast<const float2*>(c + 8 * DV);
+      acc[i][j][0] = decay * lo.x; acc[i][j][1] = decay * lo.y;
+      acc[i][j][2] = decay * hi.x; acc[i][j][3] = decay * hi.y;
+    }
+#pragma unroll
+  for (int k0 = 0; k0 < CH; k0 += 8) {
+    FragA a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      load_at(a[i], kw, T::LDU, (wm * TM + i) * 16, k0, lane);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NT3 % WN != 0 && nt >= T::NT3) continue;
+      FragB b;
+      load_b(b, vs, T::LDV, k0, nt * 8, lane);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) mma3(acc[i][j], a[i], b);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int nt = wn + j * WN;
+      if (T::NT3 % WN != 0 && nt >= T::NT3) continue;
+      float* c = cs + (u0 + (wm * TM + i) * 16 + g) * DV +
+                 ((nt * 8 + 2 * t) ^ sw);
+      *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(c + 8 * DV) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
 }
 
 template <int CH, int HD>
@@ -101,16 +430,15 @@ __global__ void __launch_bounds__(kMlstmThreads) mlstm_scan_kernel(
     float* __restrict__ c_out, float* __restrict__ n_out,
     float* __restrict__ m_out, int s_len) {
   using T = MlstmTile<CH, HD>;
-  constexpr int DV = T::DV, DK = T::DK, DU = T::DU, LD = T::LD;
-  constexpr int RT = T::RT, ST = T::ST, CT = T::CT, UT = T::UT;
+  constexpr int DV = T::DV, DK = T::DK, DU = T::DU, NQ = T::NQ, NU = T::NU;
+  constexpr int LDQ = T::LDQ, LDP = T::LDP, LDV = T::LDV, LDU = T::LDU;
+  constexpr int R = kMlstmThreads / CH;  // threads per row (q . n, den)
   extern __shared__ __align__(16) float smem[];
   float* cs = smem + T::kC;
-  float* qs = smem + T::kQ;
-  float* ks = smem + T::kK;
-  float* kw = smem + T::kKW;
+  float* slots = smem + T::kX;     // slot i: smem + kX + i kSlot
+  float* ps = slots + ((NQ - 1) & 1) * T::kSlot;  // P [CH][LDP]
   float* vs = smem + T::kV;
-  float* ps = smem + T::kP;
-  float* a_s = smem + T::kA;       // cumsum of log_f
+  float* a_s = smem + T::kA;       // log_f, then its cumsum A
   float* li_s = a_s + CH;          // log_i
   float* mloc = li_s + CH;         // row stabiliser m_loc
   float* einter = mloc + CH;       // exp(A + m - m_loc)
@@ -121,191 +449,223 @@ __global__ void __launch_bounds__(kMlstmThreads) mlstm_scan_kernel(
   float* sc = smem + T::kS;        // m, m_new, decay
 
   const int bh = blockIdx.x, j0 = blockIdx.y * DV;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % T::WM1, wn = warp / T::WM1;  // steps 1-2 warp tile
   const float scale = 1.0f / sqrtf((float)HD);
   const int64_t xbase = (int64_t)bh * s_len * HD;
   const int64_t gbase = (int64_t)bh * s_len;
+  const float *qb = q + xbase, *kb = k + xbase, *vb = v + xbase;
+
+  // the gates and q/k slice 0 of the chunk from row c0 into slot 0
+  auto copy_chunk_head = [&](int c0) {
+    if (tid < CH) {
+      const bool in = c0 + tid < s_len;
+      const int64_t r = gbase + (in ? c0 + tid : 0);
+      cp_async4(li_s + tid, log_i + r, in);
+      cp_async4(a_s + tid, log_f + r, in);
+    }
+    copy_rows<CH, HD, DK>(slots, LDQ, qb, c0, 0, s_len, tid);
+    copy_rows<CH, HD, DK>(slots + CH * LDQ, LDQ, kb, c0, 0, s_len, tid);
+  };
 
   for (int e = tid; e < HD * DV; e += kMlstmThreads) cs[e] = 0.f;
   for (int e = tid; e < HD; e += kMlstmThreads) nv[e] = 0.f;
   if (tid == 0) sc[0] = kMlstmNegInf;
+  if (s_len > 0) copy_chunk_head(0);  // S = 0: no row to read
+  cp_async_commit();
 
   for (int c0 = 0; c0 < s_len; c0 += CH) {
-    // ---- 0. gates and the v tile -------------------------------------
-    if (tid < CH) {
-      const bool in = c0 + tid < s_len;
-      li_s[tid] = in ? log_i[gbase + c0 + tid] : kMlstmNegInf;
-      a_s[tid] = in ? log_f[gbase + c0 + tid] : 0.f;
-    }
-#pragma unroll 4
-    for (int e = tid; e < CH * DV; e += kMlstmThreads) {
-      const int s = e / DV, j = e - s * DV;
-      vs[e] = c0 + s < s_len ? v[xbase + (int64_t)(c0 + s) * HD + j0 + j]
-                             : 0.f;
-    }
+    // ---- 0. the gates (warp 0): A = cumsum log_f (one lane, in the plain
+    // version's order), the row stabiliser m_loc = max(A_t + m, A_t +
+    // max_{s<=t} (li_s - A_s)) (a shuffle scan: max does not round), the
+    // end-of-chunk m_new and decay, the key weights exp(A_T - A_s + li_s -
+    // m_new) --------------------------------------------------------------
+    cp_async_wait<0>();
     __syncthreads();
-    if (tid == 0) {
-      float acc = 0.f;
-      for (int t = 0; t < CH; ++t) {  // inclusive cumsum
-        acc += a_s[t];
-        a_s[t] = acc;
-      }
-      const float m_prev = sc[0];
-      float m_new = acc + m_prev;
-      for (int s = 0; s < CH; ++s) m_new = fmaxf(m_new, acc - a_s[s] + li_s[s]);
-      sc[1] = m_new;
-      sc[2] = expf(acc + m_prev - m_new);
-    }
-    __syncthreads();
-    if (tid < CH) {
-      const int t = tid;
-      const float at = a_s[t], binter = at + sc[0];
-      float ml = binter;
-      for (int s = 0; s <= t; ++s) ml = fmaxf(ml, at - a_s[s] + li_s[s]);
-      mloc[t] = ml;
-      einter[t] = expf(binter - ml);
-      gk[t] = expf(a_s[CH - 1] - at + li_s[t] - sc[1]) * scale;
-    }
-
-    // ---- 1. q kT, q C (the block's columns) and q . n ----------------
-    float acc_qk[RT][ST], acc_qc[RT][CT];
+    if (warp == 0) {
+      if (lane == 0) {
+        float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-#pragma unroll
-      for (int j = 0; j < ST; ++j) acc_qk[i][j] = 0.f;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc_qc[i][j] = 0.f;
-    }
-    float qn_acc = 0.f;
-    for (int d0 = 0; d0 < HD; d0 += DK) {
-      __syncthreads();  // the previous slice's readers are done
-#pragma unroll 4
-      for (int e = tid; e < CH * DK; e += kMlstmThreads) {
-        const int t = e / DK, d = e - t * DK;
-        const bool in = c0 + t < s_len;
-        const int64_t off = xbase + (int64_t)(c0 + t) * HD + d0 + d;
-        qs[d * LD + t] = in ? q[off] : 0.f;
-        ks[d * LD + t] = in ? k[off] * scale : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < DK; ++d) {
-        float a[RT], b[ST], c[CT];
-        lds<RT>(&qs[d * LD + ty * RT], a);
-        lds<ST>(&ks[d * LD + tx * ST], b);
-        lds<CT>(&cs[(d0 + d) * DV + tx * CT], c);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-#pragma unroll
-          for (int j = 0; j < ST; ++j)
-            acc_qk[i][j] = fmaf(a[i], b[j], acc_qk[i][j]);
-#pragma unroll
-          for (int j = 0; j < CT; ++j)
-            acc_qc[i][j] = fmaf(a[i], c[j], acc_qc[i][j]);
+        for (int t = 0; t < CH; t += 4) {
+          float4 x = *reinterpret_cast<float4*>(a_s + t);
+          x.x = acc += x.x;
+          x.y = acc += x.y;
+          x.z = acc += x.z;
+          x.w = acc += x.w;
+          *reinterpret_cast<float4*>(a_s + t) = x;
         }
       }
-      if (tid < CH) {
-#pragma unroll 8
-        for (int d = 0; d < DK; ++d)
-          qn_acc = fmaf(qs[d * LD + tid], nv[d0 + d], qn_acc);
+      __syncwarp();
+      const float m_prev = sc[0];
+      float f[2], l[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = lane + 32 * u;
+        const bool row = r < CH, in = row && c0 + r < s_len;
+        f[u] = row ? a_s[r] : 0.f;
+        l[u] = in ? li_s[r] : kMlstmNegInf;
+      }
+      float p[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) p[u] = l[u] - f[u];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float y = __shfl_up_sync(0xffffffffu, p[u], o);
+          if (lane >= o) p[u] = fmaxf(p[u], y);
+        }
+      p[1] = fmaxf(p[1], __shfl_sync(0xffffffffu, p[0], 31));
+      const float a_end = a_s[CH - 1];
+      const float p_end =
+          __shfl_sync(0xffffffffu, p[(CH - 1) / 32], (CH - 1) & 31);
+      const float m_new = fmaxf(a_end + m_prev, a_end + p_end);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = lane + 32 * u;
+        if (r >= CH) continue;
+        const float binter = f[u] + m_prev;
+        const float ml = fmaxf(binter, f[u] + p[u]);
+        li_s[r] = l[u];
+        mloc[r] = ml;
+        einter[r] = expf(binter - ml);
+        gk[r] = expf(a_end - f[u] + l[u] - m_new) * scale;
+      }
+      if (lane == 0) {
+        sc[1] = m_new;
+        sc[2] = expf(a_end + m_prev - m_new);
       }
     }
-    if (tid < CH) qn[tid] = qn_acc;
     __syncthreads();
 
-    // ---- 2. h ----------------------------------------------------------
-    // P[t][s] = exp(W - m_loc) * qk, W = A_t - A_s + li_s for s <= t, else
-    // -1e30; a row's CH keys sit in the 16 lanes of one half-warp (same ty)
+    // ---- 1. q kT, q C (the block's columns) and q . n, a slice at a time:
+    // slice i in slot i & 1 while the next tile is copied into the other --
+    float qk[T::TM1][T::TK1][4], qc[T::TM1][T::TC1][4];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int t = ty * RT + i;
-      const float at = a_s[t], ml = mloc[t];
-      float rowsum = 0.f;
+    for (int i = 0; i < T::TM1; ++i)
 #pragma unroll
-      for (int j = 0; j < ST; ++j) {
-        const int s = tx * ST + j;
-        const float w = s <= t ? at - a_s[s] + li_s[s] : kMlstmNegInf;
-        const float p = expf(w - ml) * acc_qk[i][j];
-        acc_qk[i][j] = p;
-        rowsum += p;
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int j = 0; j < T::TK1; ++j) qk[i][j][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < T::TC1; ++j) qc[i][j][e] = 0.f;
       }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rowsum += __shfl_xor_sync(0xffffffffu, rowsum, o);
-      if (tx == 0) den[t] = rowsum + einter[t] * qn[t];
-#pragma unroll
-      for (int j = 0; j < ST; ++j) ps[(tx * ST + j) * LD + t] = acc_qk[i][j];
-    }
-    __syncthreads();
-    {
-      float acc[RT][CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < CH; ++s) {
-        float p[RT], w[CT];
-        lds<RT>(&ps[s * LD + ty * RT], p);
-        lds<CT>(&vs[s * DV + tx * CT], w);
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+    float qn_part = 0.f;
+    for (int i = 0; i < NQ; ++i) {
+      float* nxt = slots + ((i + 1) & 1) * T::kSlot;
+      if (i + 1 < NQ) {
+        copy_rows<CH, HD, DK>(nxt, LDQ, qb, c0, (i + 1) * DK, s_len, tid);
+        copy_rows<CH, HD, DK>(nxt + CH * LDQ, LDQ, kb, c0, (i + 1) * DK,
+                              s_len, tid);
+      } else {
+        copy_rows<CH, HD, DU>(nxt, LDU, kb, c0, 0, s_len, tid);  // band 0
       }
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int t = ty * RT + i;
-        if (c0 + t >= s_len) continue;
-        const float ei = einter[t];
-        const float dn = fmaxf(fabsf(den[t]), expf(-mloc[t]));
-        float* o = h + xbase + (int64_t)(c0 + t) * HD + j0 + tx * CT;
-#pragma unroll
-        for (int j = 0; j < CT; ++j)
-          o[j] = (acc[i][j] + ei * acc_qc[i][j]) / dn;
-      }
-    }
-
-    // ---- 3. C = decay C + (k w)T v, n = decay n + sum_s k w -----------
-    const float decay = sc[2];
-    for (int u0 = 0; u0 < HD; u0 += DU) {
-      __syncthreads();  // q/k slices (step 1) or the last kw read are done
+      if (i == 0) copy_rows<CH, HD, DV>(vs, LDV, vb, c0, j0, s_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // slice i is in
+      const float* qs = slots + (i & 1) * T::kSlot;
+      qk_qc_slice<CH, HD>(qk, qc, qs, qs + CH * LDQ, cs, i * DK, warp, lane);
+      const int r = tid / R;
 #pragma unroll 4
-      for (int e = tid; e < CH * DU; e += kMlstmThreads) {
-        const int s = e / DU, d = e - s * DU;
-        kw[e] = c0 + s < s_len
-                    ? k[xbase + (int64_t)(c0 + s) * HD + u0 + d] * gk[s]
-                    : 0.f;
-      }
-      __syncthreads();
-      float acc[UT][CT];
-#pragma unroll
-      for (int i = 0; i < UT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < CH; ++s) {
-        float a[UT], b[CT];
-        lds<UT>(&kw[s * DU + ty * UT], a);
-        lds<CT>(&vs[s * DV + tx * CT], b);
-#pragma unroll
-        for (int i = 0; i < UT; ++i)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < UT; ++i) {
-        float* crow = &cs[(u0 + ty * UT + i) * DV + tx * CT];
-#pragma unroll
-        for (int j = 0; j < CT; ++j) crow[j] = decay * crow[j] + acc[i][j];
-      }
-      if (tid < DU) {
-        float sum = 0.f;
-        for (int s = 0; s < CH; ++s) sum += kw[s * DU + tid];
-        nv[u0 + tid] = decay * nv[u0 + tid] + sum;
-      }
+      for (int d = tid % R; d < DK; d += R)
+        qn_part = fmaf(qs[r * LDQ + d], nv[i * DK + d], qn_part);
+      __syncthreads();  // slot i & 1 is read
     }
-    __syncthreads();  // the v tile and gates are read; next chunk may load
+#pragma unroll
+    for (int o = R / 2; o > 0; o >>= 1)
+      qn_part += __shfl_xor_sync(0xffffffffu, qn_part, o);
+    if (tid % R == 0) qn[tid / R] = qn_part;
+
+    // ---- 2. h = ((S o qk) v + e_inter q C) / max(|den|, exp(-m_loc)) --
+    // P[t][s] = exp(W - m_loc) qk / sqrt(dh), W = A_t - A_s + li_s for
+    // s <= t, else -1e30, from step 1's q kT tiles; its q C tiles, times
+    // e_inter, are the accumulators of P v
+    if (NQ == 1) cp_async_wait<0>();  // v came with band 0
+#pragma unroll
+    for (int i = 0; i < T::TM1; ++i) {
+      const int r0 = step1_mtile<CH, HD>(wm, i) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < T::TK1; ++j) {
+        const int nt = wn + j * T::WN1;
+        if (T::NK1 % T::WN1 != 0 && nt >= T::NK1) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = r0 + (e >= 2 ? 8 : 0), s = nt * 8 + 2 * tq + (e & 1);
+          const float w = s <= t ? a_s[t] - a_s[s] + li_s[s] : kMlstmNegInf;
+          ps[t * LDP + s] = expf(w - mloc[t]) * (qk[i][j][e] * scale);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < T::TC1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          qc[i][j][e] *= einter[r0 + (e >= 2 ? 8 : 0)];
+    }
+    __syncthreads();  // P, q . n and v
+    {
+      const int r = tid / R;
+      float rowsum = 0.f;
+      for (int s = tid % R; s < CH; s += R) rowsum += ps[r * LDP + s];
+#pragma unroll
+      for (int o = R / 2; o > 0; o >>= 1)
+        rowsum += __shfl_xor_sync(0xffffffffu, rowsum, o);
+      if (tid % R == 0) den[r] = rowsum + einter[r] * qn[r];
+    }
+    pv_product<CH, HD>(qc, ps, vs, warp, lane);
+    __syncthreads();  // den; P and v are read
+#pragma unroll
+    for (int i = 0; i < T::TM1; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TC1; ++j) {
+        const int nt = wn + j * T::WN1;
+        if (T::NC1 % T::WN1 != 0 && nt >= T::NC1) continue;
+        const int r0 = step1_mtile<CH, HD>(wm, i) * 16 + g;
+        const int col = j0 + nt * 8 + 2 * tq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = r0 + 8 * half;
+          if (c0 + t >= s_len) continue;
+          const float dn = fmaxf(fabsf(den[t]), expf(-mloc[t]));
+          *reinterpret_cast<float2*>(h + xbase + (int64_t)(c0 + t) * HD +
+                                     col) =
+              make_float2(qc[i][j][2 * half] / dn,
+                          qc[i][j][2 * half + 1] / dn);
+        }
+      }
+    // step 3 takes v weighted by the key weights: (k w)T v = kT (w v)
+    for (int e = tid; e < CH * DV; e += kMlstmThreads) {
+      const int s = e / DV, j = e - s * DV;
+      vs[s * LDV + j] *= gk[s];
+    }
+
+    // ---- 3. C = decay C + kT (w v), n = decay n + sum_s k w, in bands
+    // of DU rows of C: band b in slot (NQ + b) & 1, the raw k [CH][DU] ----
+    const float decay = sc[2];
+    for (int b = 0; b < NU; ++b) {
+      float* nxt = slots + ((NQ + b + 1) & 1) * T::kSlot;
+      if (b + 1 < NU)
+        copy_rows<CH, HD, DU>(nxt, LDU, kb, c0, (b + 1) * DU, s_len, tid);
+      else if (c0 + CH < s_len)  // the next chunk's head, into slot 0
+        copy_chunk_head(c0 + CH);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // band b is in (and w v is written)
+      const float* kr = slots + ((NQ + b) & 1) * T::kSlot;
+      const int u0 = b * DU;
+      if (tid < DU) {  // 8 partial sums: no 64-long chain of dependent FMAs
+        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < CH; ++s)
+          sum[s & 7] = fmaf(kr[s * LDU + tid], gk[s], sum[s & 7]);
+        nv[u0 + tid] = decay * nv[u0 + tid] +
+                       (((sum[0] + sum[1]) + (sum[2] + sum[3])) +
+                        ((sum[4] + sum[5]) + (sum[6] + sum[7])));
+      }
+      update_c_band<CH, HD>(cs, kr, vs, u0, decay, warp, lane);
+      __syncthreads();  // slot (NQ + b) & 1 is read
+    }
     if (tid == 0) sc[0] = sc[1];
   }
 
@@ -313,7 +673,7 @@ __global__ void __launch_bounds__(kMlstmThreads) mlstm_scan_kernel(
   float* cdst = c_out + (int64_t)bh * HD * HD + j0;
   for (int e = tid; e < HD * DV; e += kMlstmThreads) {
     const int d = e / DV, j = e - d * DV;
-    cdst[(int64_t)d * HD + j] = cs[e];
+    cdst[(int64_t)d * HD + j] = cs[cidx<DV>(d, j)];
   }
   if (blockIdx.y == 0) {
     for (int e = tid; e < HD; e += kMlstmThreads)
