@@ -27,9 +27,10 @@ order:
 4. **trace** -- the device's busy share of one plaintext run per device
    path (``torch.profiler``).
 5. **attn_parity** -- the two attention kernels against their plain
-   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 and 3, head
-   dims 16 to 128, ``-1`` table slots, windows, lengths that are no
-   multiple of a tile, and the serving shapes of phase 6.
+   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4, every
+   head dim the wrappers take (16 to 128), ``-1`` table slots, windows,
+   lengths that are no multiple of a tile, and the serving shapes of
+   phase 6.
 6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
    and depth (3.84 B float32 parameters from a fixed seed on the card): 16
    requests of 1024 tokens (8-token header) in two waves of 8, 32 new
@@ -64,9 +65,9 @@ order:
    around each launch, L2 flushed before it, median of 30 launches; the
    bound is the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the card's peak for their type (int32 for the
-   datapath, float32 FMA for attention; for the mLSTM scan three TF32
-   tensor-core products per float32 product, with its float32-FMA bound
-   beside it as ``fp32_fma_bound_ms``).
+   datapath, float32 FMA for paged attention; for flash attention and the
+   mLSTM scan three TF32 tensor-core products per float32 product, with
+   the float32-FMA bound beside it as ``fp32_fma_bound_ms``).
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -81,6 +82,14 @@ builds each source into its own library, runs phase 7 against each (and
 phase 8 through each, with ``--serve``) and times each at the run's shape
 as phase 9 does, in turns (A B ... B A, twice), in one process on one
 card.
+
+``python3 chip_smoke.py --flash-ab A.cu B.cu ...`` does the same for
+versions of ``csrc/flash_attention.cu``: the ``flash_attention`` cases of
+phase 5 against each build and phase 9's prefill-layer timing of each, in
+turns. Both modes compile with ``-I src/repro_torch/kernels/csrc``, so a
+copy under ``build/`` finds the shared header ``tf32_mma.cuh``, and print
+each build's ``ptxas -v`` and SASS opcode mix of its run-shape
+instantiation.
 """
 from __future__ import annotations
 
@@ -107,11 +116,12 @@ INT32_OPS_PER_SM_CLOCK = 64
 FP32_OPS_PER_SM_CLOCK = 256
 # TF32 on the tensor cores, dense: 1024 multiply-adds per SM per clock
 # (H100 SXM: 494.7 TFLOP/s at the data sheet's 1830 MHz boost, 132 SMs).
-# The mLSTM kernel takes each float32 product as three TF32 products
-# (hi.hi + hi.lo + lo.hi), so its bound is three times the function's
-# operations at this rate; its float32-FMA bound is printed beside it.
+# The flash attention and mLSTM kernels take each float32 product as three
+# TF32 products (hi.hi + hi.lo + lo.hi), so their bound is three times the
+# function's operations at this rate; the float32-FMA bound is printed
+# beside it.
 TF32_OPS_PER_SM_CLOCK = 2048
-MLSTM_TF32_PASSES = 3
+TF32_SPLIT_PASSES = 3
 ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
 # the JAX package's bars for its Pallas mLSTM kernel (tests/test_kernels.py)
 MLSTM_TOL = dict(atol=5e-4, rtol=5e-4)
@@ -612,8 +622,12 @@ def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd):
             torch.randn((b, hkv, s, hd), generator=gen, device=dev))
 
 
-def attn_parity(ss: ServeSize, cfg, dev, torch, ops):
-    """Both attention kernels against their plain versions on the card."""
+ATTN_KERNELS = ("paged_attention", "flash_attention")
+
+
+def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
+    """The attention ``kernels`` against their plain versions on the
+    card."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     results = []
@@ -639,7 +653,13 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops):
               False, 0),
              ("g2-hd16-tail", dict(b=2, hq=4, hkv=2, s=40, hd=16), True, 0),
              ("g3-hd96-tail", dict(b=1, hq=3, hkv=1, s=70, hd=96), True, 0),
+             ("g3-hd96-window-tail", dict(b=2, hq=6, hkv=2, s=390, hd=96),
+              True, 130),
+             ("g4-hd32-noncausal-window", dict(b=1, hq=8, hkv=2, s=270,
+                                               hd=32), False, 75),
              ("serve", full, True, 0)]
+    if "flash_attention" not in kernels:
+        flash = []
     for label, shape, causal, window in flash:
         q, k, v = flash_case(gen, dev, torch, **shape)
         outs = [ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -656,19 +676,21 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops):
                                     seq_lens=[33, 120, 0]), True, 0),
              ("g2-hd16", dict(b=2, hq=4, hkv=2, hd=16, page=8, pps=5,
                               pool_pages=12, seq_lens=[17, 30]), False, 0)]
-    for label, shape, gaps, window in paged:
-        case = paged_case(gen, dev, torch, gaps=gaps, **shape)
-        outs = [ops.paged_attention(*case, window=window, impl=impl)
+    if "paged_attention" in kernels:
+        for label, shape, gaps, window in paged:
+            case = paged_case(gen, dev, torch, gaps=gaps, **shape)
+            outs = [ops.paged_attention(*case, window=window, impl=impl)
+                    for impl in ("cuda", "ref")]
+            record("paged_attention", label, outs[0], outs[1])
+        case = serve_paged_case(ss, cfg, gen, dev, torch)
+        outs = [ops.paged_attention(*case, impl=impl)
                 for impl in ("cuda", "ref")]
-        record("paged_attention", label, outs[0], outs[1])
-    case = serve_paged_case(ss, cfg, gen, dev, torch)
-    outs = [ops.paged_attention(*case, impl=impl) for impl in ("cuda", "ref")]
-    record("paged_attention", "serve", outs[0], outs[1])
+        record("paged_attention", "serve", outs[0], outs[1])
     emit({"phase": "attn_parity", "cases": len(results),
           "all_close": all(r["close"] for r in results), "tol": ATTN_TOL,
           "max_abs_err": {k: max(r["max_abs_err"] for r in results
                                  if r["kernel"] == k)
-                          for k in ("paged_attention", "flash_attention")}})
+                          for k in kernels}})
     return results
 
 
@@ -1283,6 +1305,31 @@ def mlstm_timing_case(xs: XlstmSize, gen, dev, torch):
     return mc, label, flops, nbytes
 
 
+def flash_timing_case(ss: ServeSize, cfg, gen, dev, torch):
+    """Inputs of one layer's prefill attention of a full wave, causal, its
+    label, the function's operations and bytes: 4 hd multiply-add
+    operations per (query head, query, key) pair of the causal triangle; q,
+    k, v read once, the output written once."""
+    fq, fk, fv = flash_case(gen, dev, torch, b=ss.max_batch,
+                            hq=cfg.num_heads, hkv=cfg.num_kv_heads,
+                            s=ss.prompt, hd=cfg.head_dim)
+    pairs = ss.prompt * (ss.prompt + 1) // 2
+    flops = 4 * ss.max_batch * cfg.num_heads * cfg.head_dim * pairs
+    nbytes = 4 * 2 * (fq.numel() + fk.numel())
+    return (fq, fk, fv), f"B={ss.max_batch} S={ss.prompt} causal", flops, \
+        nbytes
+
+
+def card_line(torch) -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    check(smi, "nvidia-smi printed nothing")
+    return smi
+
+
 def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
            tt):
     rng = np.random.default_rng(29)
@@ -1408,28 +1455,29 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
           lambda: ops.paged_attention(*pc, impl="ref"),
           (4 * (reads + writes), 4 * hq * hd * keys), ops_rate=frate)
     # flash_attention: one layer of a prefill of a full wave, causal
-    fq, fk, fv = flash_case(gen, dev, torch, b=ss.max_batch, hq=hq, hkv=hkv,
-                            s=ss.prompt, hd=hd)
-    pairs = ss.prompt * (ss.prompt + 1) // 2
+    trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
+    (fq, fk, fv), label, flops, nbytes = flash_timing_case(ss, cfg, gen, dev,
+                                                           torch)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    entry("flash_attention", f"B={ss.max_batch} S={ss.prompt} causal",
+    entry("flash_attention", label,
           lambda: ops.flash_attention(fq, fk, fv, impl="cuda"),
           lambda: ops.flash_attention(fq, fk, fv, impl="ref"),
-          (4 * 2 * (fq.numel() + fk.numel()),
-           4 * ss.max_batch * hq * hd * pairs),
+          (nbytes, TF32_SPLIT_PASSES * flops),
           lib_fn=lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True),
-          ops_rate=frate)
+          ops_rate=trate)
+    out["flash_attention"][-1].update(
+        function_flop=flops,
+        fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
     del fq, fk, fv, pc, q, pool
     # mlstm_scan: one mLSTM block of the xLSTM prefill
     mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
     c = xs.chunk
-    trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
     entry("mlstm_scan", label,
           lambda: ops.mlstm_scan(*mc, chunk=c, impl="cuda",
                                  return_state=True),
           lambda: ops.mlstm_scan(*mc, chunk=c, impl="ref",
                                  return_state=True),
-          (nbytes, MLSTM_TF32_PASSES * flops), ops_rate=trate)
+          (nbytes, TF32_SPLIT_PASSES * flops), ops_rate=trate)
     out["mlstm_scan"][-1].update(
         function_flop=flops,
         fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
@@ -1441,12 +1489,14 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
 
 
 # ---------------------------------------------------------------------------
-# --mlstm-ab: phase 7 and the mLSTM timing for other builds of the kernel
+# --mlstm-ab, --flash-ab: one kernel's checks and timing for other builds
 # ---------------------------------------------------------------------------
 
-def build_mlstm_variants(paths, _build):
-    """Compile each ``mlstm_scan.cu`` version into its own library under
-    ``build/ab/`` (one ``nvcc`` each, all at once) and load it."""
+def build_variants(paths, _build, symbol: str, instance: str):
+    """Compile each version of one kernel's source into its own library
+    under ``build/ab/`` (one ``nvcc`` each, all at once) and load it with
+    the C entry point ``symbol``; print each build's ``ptxas -v`` and SASS
+    opcode mix of the kernel whose mangled name holds ``instance``."""
     import ctypes
     import hashlib
 
@@ -1457,10 +1507,11 @@ def build_mlstm_variants(paths, _build):
     for p in paths:
         src = Path(p).resolve()
         tag = hashlib.sha256(src.read_bytes()
+                             + (_build.CSRC / "tf32_mma.cuh").read_bytes()
                              + " ".join(_build.NVCC_FLAGS).encode())
         so = out_dir / f"{src.stem}_{tag.hexdigest()[:12]}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-               str(so), str(src)]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-Xptxas",
+               "-v", "-shared", "-o", str(so), str(src)]
         jobs.append((p, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -1469,35 +1520,36 @@ def build_mlstm_variants(paths, _build):
         log, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed on {p}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.libra_mlstm_scan.argtypes = _build.SIGNATURES["libra_mlstm_scan"]
-        lib.libra_mlstm_scan.restype = ctypes.c_int
+        fn = getattr(lib, symbol)
+        fn.argtypes = _build.SIGNATURES[symbol]
+        fn.restype = ctypes.c_int
         libs[p] = lib
-        ptxas, run_kernel = [], False  # ptxas -v of <64, 512>
+        ptxas, run_kernel = [], False
         for ln in log.splitlines():
             if "Compiling entry" in ln:
-                run_kernel = "kernelILi64ELi512E" in ln
+                run_kernel = instance in ln
             elif run_kernel and ("Used" in ln or "spill" in ln):
                 ptxas.append(ln.strip())
         emit({"ab_build": p, "ptxas": ptxas,
-              "sass_64_512": sass_mix(so, nvcc, 64, 512)})
+              "sass": sass_mix(so, nvcc, instance)})
     emit({"ab_build_seconds": time.perf_counter() - t0})
     return libs
 
 
-def sass_mix(so: Path, nvcc: str, ch: int, hd: int):
+def sass_mix(so: Path, nvcc: str, instance: str):
     """The 20 commonest opcodes (with their first modifier) in the code of
-    ``mlstm_scan_kernel<ch, hd>`` in a built library (``cuobjdump``): a
-    static count, and the loops are unrolled."""
+    the kernel whose mangled name holds ``instance`` in a built library
+    (``cuobjdump``): a static count, and the loops are unrolled."""
     import re
 
     dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
                            str(so)], capture_output=True, text=True).stdout
-    name, inside, counts = f"mlstm_scan_kernelILi{ch}ELi{hd}E", False, {}
+    inside, counts = False, {}
     op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9.]*)")
     for ln in dump.splitlines():
         if "Function :" in ln:
-            inside = name in ln
+            inside = instance in ln
             continue
         m = op.search(ln) if inside else None
         if m:
@@ -1506,51 +1558,95 @@ def sass_mix(so: Path, nvcc: str, ch: int, hd: int):
     return sorted(counts.items(), key=lambda kv: -kv[1])[:20]
 
 
-def mlstm_ab(paths, dev, torch, np, ops, _build, serve=False) -> int:
-    """Phase 7 and the run-shape timing through each build (the wrapper's
-    library swapped); with ``serve``, phase 8 too."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import mlstm_scan as kmlstm
-
-    libs = build_mlstm_variants(paths, _build)
-    xs = XlstmSize()
+def ab_parity(libs, _build, run) -> dict:
+    """``run()`` (a parity phase) through each build, the wrapper's library
+    swapped; a build that fails is reported and timed all the same."""
     passed = {}
     for p, lib in libs.items():
         _build._LIB = lib
         emit({"ab_variant": p})
         try:
-            mlstm_parity(xs, get_config(xs.arch), dev, torch, ops)
-            if serve:
-                xlstm_serve(xs, dev, torch, np, kmlstm)
+            run()
             passed[p] = True
         except Exception as exc:  # reported; the other builds still run
             emit({"ab_variant": p, "failed": str(exc)})
             passed[p] = False
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(31)
-    mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
+    return passed
 
-    def scan(lib):
+
+def ab_times(libs, _build, fn, torch) -> dict:
+    """Median device time of ``fn()`` through each build, in turns (A B
+    ... B A, twice), each a median of ``TIMED_RUNS`` launches."""
+    def through(lib):
         _build._LIB = lib
-        return ops.mlstm_scan(*mc, chunk=xs.chunk, impl="cuda",
-                              return_state=True)
+        return fn()
     times = {p: [] for p in libs}
     for _ in range(2):
         for p in list(libs) + list(libs)[::-1]:
-            times[p].append(time_ms(lambda: scan(libs[p]), torch))
+            times[p].append(time_ms(lambda: through(libs[p]), torch))
+    return times
+
+
+def ab_report(phase, label, nbytes, flops, times, passed, torch,
+              **extra) -> int:
+    """Print one A/B phase line: each build's median time beside the
+    split-TF32 and float32-FMA bounds of the function; 0 if every build
+    passed its parity phase."""
     trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
     frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
-         "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    emit({"phase": "mlstm_ab", "variant": label, "card": smi,
+    emit({"phase": phase, "variant": label, "card": card_line(torch),
           "runs_per_time": TIMED_RUNS,
-          "bound_ms": bound(nbytes, MLSTM_TF32_PASSES * flops, trate)[0],
-          "fp32_fma_bound_ms": bound(nbytes, flops, frate)[0],
+          "bound_ms": bound(nbytes, TF32_SPLIT_PASSES * flops, trate)[0],
+          "fp32_fma_bound_ms": bound(nbytes, flops, frate)[0], **extra,
           "ms": {p: statistics.median(t) for p, t in times.items()},
           "ms_each": times, "parity": passed})
     return 0 if all(passed.values()) else 1
+
+
+def mlstm_ab(paths, dev, torch, np, ops, _build, serve=False) -> int:
+    """Phase 7 and the run-shape timing through each build of the mLSTM
+    scan; with ``serve``, phase 8 too."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm_scan as kmlstm
+
+    libs = build_variants(paths, _build, "libra_mlstm_scan",
+                          "mlstm_scan_kernelILi64ELi512E")
+    xs = XlstmSize()
+
+    def run():
+        mlstm_parity(xs, get_config(xs.arch), dev, torch, ops)
+        if serve:
+            xlstm_serve(xs, dev, torch, np, kmlstm)
+    passed = ab_parity(libs, _build, run)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
+    times = ab_times(libs, _build, lambda: ops.mlstm_scan(
+        *mc, chunk=xs.chunk, impl="cuda", return_state=True), torch)
+    return ab_report("mlstm_ab", label, nbytes, flops, times, passed, torch)
+
+
+def flash_ab(paths, dev, torch, ops, _build) -> int:
+    """Phase 5's flash_attention cases and the prefill-layer timing through
+    each build of the flash attention kernel, and SDPA's time beside them."""
+    from repro_torch.configs import get_config
+
+    libs = build_variants(paths, _build, "libra_flash_attention",
+                          "flash_attention_kernelILi128E")
+    ss = ServeSize()
+    cfg = get_config(ss.arch)
+    passed = ab_parity(libs, _build, lambda: attn_parity(
+        ss, cfg, dev, torch, ops, kernels=("flash_attention",)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    (fq, fk, fv), label, flops, nbytes = flash_timing_case(ss, cfg, gen, dev,
+                                                           torch)
+    times = ab_times(libs, _build, lambda: ops.flash_attention(
+        fq, fk, fv, impl="cuda"), torch)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return ab_report("flash_ab", label, nbytes, flops, times, passed, torch,
+                     library_ms=time_ms(lambda: sdpa(
+                         fq, fk, fv, is_causal=True, enable_gqa=True), torch))
 
 
 # ---------------------------------------------------------------------------
@@ -1583,6 +1679,9 @@ def main() -> int:
         srcs = sys.argv[2 + with_serve:]
         check(srcs, "--mlstm-ab takes mlstm_scan.cu sources")
         return mlstm_ab(srcs, dev, torch, np, ops, _build, with_serve)
+    if sys.argv[1:2] == ["--flash-ab"]:
+        check(sys.argv[2:], "--flash-ab takes flash_attention.cu sources")
+        return flash_ab(sys.argv[2:], dev, torch, ops, _build)
     size = Size()
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
@@ -1616,12 +1715,7 @@ def main() -> int:
     tim = timed("timing", timing, size, ss, xs, dev, torch, np, ops, tt)
     emit({"phase_seconds": phase_s})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
-         "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    check(smi, "nvidia-smi printed nothing")
-    print(smi, flush=True)
+    print(card_line(torch), flush=True)
 
     kernels = []
     for name, replaces in KERNELS.items():

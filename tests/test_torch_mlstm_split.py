@@ -3,49 +3,22 @@
 The kernel takes each float32 product on the tensor cores as three TF32
 products: ``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
 (``cvt.rna``: a 10-bit mantissa, round to nearest, ties away from zero),
-and ``a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b``. This file holds a TF32
-emulation of that (kept here, not in the port's API) and a chunked mLSTM
-whose four products (``q kT``, ``q C``, ``P v``, ``(k w)T v``) go through
-it, and checks that the split keeps the scan within the JAX package's bar
-for its Pallas kernel (``atol = rtol = 5e-4``) of the plain float32
-``mlstm_chunked_ref`` at xlstm-350m's head dim, where one TF32 pass does
-not. The emulation sums the exact TF32 products in float64: the card's
-accumulation order is for ``chip_smoke.py`` to hold."""
+and ``a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b``. This file holds a chunked
+mLSTM whose four products (``q kT``, ``q C``, ``P v``, ``(k w)T v``) go
+through the TF32 emulation of ``_tf32_emulation.py``, and checks that the
+split keeps the scan within the JAX package's bar for its Pallas kernel
+(``atol = rtol = 5e-4``) of the plain float32 ``mlstm_chunked_ref`` at
+xlstm-350m's head dim, where one TF32 pass does not."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from _tf32_emulation import mm_one_pass, mm_split, split, tf32
 from repro_torch.kernels.ref import NEG_INF, mlstm_chunked_ref
 
 BAR = dict(atol=5e-4, rtol=5e-4)
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10-bit mantissa, ties away from
-    zero), by integer view, as ``cvt.rna.tf32.f32`` rounds."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
-
-def mm_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as the kernel's three TF32 products."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    d = torch.float64
-    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d)
-            + ah.to(d) @ bh.to(d)).to(torch.float32)
-
-
-def mm_one_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as one TF32 product."""
-    d = torch.float64
-    return (tf32(a).to(d) @ tf32(b).to(d)).to(torch.float32)
 
 
 def chunked(q, k, v, log_i, log_f, chunk, mm):
