@@ -27,10 +27,11 @@ order:
 4. **trace** -- the device's busy share of one plaintext run per device
    path (``torch.profiler``).
 5. **attn_parity** -- the two attention kernels against their plain
-   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4, every
-   head dim the wrappers take (16 to 128), ``-1`` table slots, windows,
-   lengths that are no multiple of a tile, and the serving shapes of
-   phase 6.
+   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4 (and
+   8 and 12 for paged attention), every head dim the wrappers take (16 to
+   128), ``-1`` table slots, windows, lengths that are no multiple of a
+   tile, pages of two tiles, a table of 70 slots, and the serving shapes of
+   phase 6 (paged attention also at B=1).
 6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
    and depth (3.84 B float32 parameters from a fixed seed on the card): 16
    requests of 1024 tokens (8-token header) in two waves of 8, 32 new
@@ -86,10 +87,13 @@ card.
 ``python3 chip_smoke.py --flash-ab A.cu B.cu ...`` does the same for
 versions of ``csrc/flash_attention.cu``: the ``flash_attention`` cases of
 phase 5 against each build and phase 9's prefill-layer timing of each, in
-turns. Both modes compile with ``-I src/repro_torch/kernels/csrc``, so a
-copy under ``build/`` finds the shared header ``tf32_mma.cuh``, and print
-each build's ``ptxas -v`` and SASS opcode mix of its run-shape
-instantiation.
+turns. ``python3 chip_smoke.py --paged-ab A.cu B.cu ...`` does the same
+for versions of ``csrc/paged_attention.cu``: the ``paged_attention`` cases
+of phase 5 and phase 9's decode-layer timing, with the row's bytes bound,
+each build's TB/s and its share of the bound. The modes compile with
+``-I src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
+shared header ``tf32_mma.cuh``, and print each build's ``ptxas -v`` and
+SASS opcode mix of its run-shape instantiation.
 """
 from __future__ import annotations
 
@@ -616,6 +620,25 @@ def serve_paged_case(ss: ServeSize, cfg, gen, dev, torch):
                       seq_lens=[ss.timing_context] * ss.max_batch)
 
 
+def paged_timing_case(ss: ServeSize, cfg, gen, dev, torch):
+    """Inputs of one layer's decode attention of a full wave, its label,
+    the function's operations and bytes: 4 hd multiply-add operations per
+    (query head, valid key); q, the valid keys' K and V head rows, the
+    table, positions and lengths read once, the partial (acc, m, l)
+    written once."""
+    pc = serve_paged_case(ss, cfg, gen, dev, torch)
+    q, _pool, tables, page_pos, sl = pc
+    pos = (page_pos[:, :, None].long()
+           + torch.arange(ss.page, device=dev)[None, None, :])
+    keys = int(((tables[:, :, None] >= 0) & (pos <= sl.long()[:, None, None]))
+               .sum())
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    reads = q.numel() + keys * 2 * hkv * hd + 2 * tables.numel() + sl.numel()
+    writes = q.numel() + 2 * q.shape[0] * hq
+    return (pc, f"B={q.shape[0]} ctx={ss.timing_context}",
+            4 * hq * hd * keys, 4 * (reads + writes))
+
+
 def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd):
     return (torch.randn((b, hq, s, hd), generator=gen, device=dev),
             torch.randn((b, hkv, s, hd), generator=gen, device=dev),
@@ -638,7 +661,9 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
         ok = all(torch.allclose(a, b, **ATTN_TOL)
                  for a, b in zip(outs_k, outs_r))
         results.append(dict(kernel=kernel, case=label, close=ok,
-                            max_abs_err=err))
+                            max_abs_err=err,
+                            max_abs_ref=max(float(b.abs().max())
+                                            for b in outs_r)))
         check(ok, f"{kernel} [{label}] differs from its plain version "
                   f"(max abs err {err})")
 
@@ -675,7 +700,22 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
                                     pps=10, pool_pages=40,
                                     seq_lens=[33, 120, 0]), True, 0),
              ("g2-hd16", dict(b=2, hq=4, hkv=2, hd=16, page=8, pps=5,
-                              pool_pages=12, seq_lens=[17, 30]), False, 0)]
+                              pool_pages=12, seq_lens=[17, 30]), False, 0),
+             ("g4-hd96-gaps", dict(b=3, hq=8, hkv=2, hd=96, page=16, pps=12,
+                                   pool_pages=40, seq_lens=[100, 17, 150]),
+              True, 0),
+             ("g1-hd32-pps70", dict(b=2, hq=4, hkv=4, hd=32, page=16, pps=70,
+                                    pool_pages=120,
+                                    seq_lens=[1000, 555]), False, 0),
+             ("g8-hd64-page32-gaps-window",
+              dict(b=2, hq=16, hkv=2, hd=64, page=32, pps=10, pool_pages=24,
+                   seq_lens=[200, 70]), True, 150),
+             ("g12-hd16", dict(b=2, hq=12, hkv=1, hd=16, page=8, pps=9,
+                               pool_pages=20, seq_lens=[40, 63]), False, 0),
+             ("b1-ctx1040", dict(b=1, hq=cfg.num_heads, hkv=cfg.num_kv_heads,
+                                 hd=cfg.head_dim, page=ss.page, pps=ss.pps,
+                                 pool_pages=ss.pool_pages,
+                                 seq_lens=[ss.timing_context]), False, 0)]
     if "paged_attention" in kernels:
         for label, shape, gaps, window in paged:
             case = paged_case(gen, dev, torch, gaps=gaps, **shape)
@@ -690,7 +730,10 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
           "all_close": all(r["close"] for r in results), "tol": ATTN_TOL,
           "max_abs_err": {k: max(r["max_abs_err"] for r in results
                                  if r["kernel"] == k)
-                          for k in kernels}})
+                          for k in kernels},
+          "by_case": {f'{r["kernel"]}/{r["case"]}': [r["max_abs_err"],
+                                                      r["max_abs_ref"]]
+                      for r in results}})
     return results
 
 
@@ -1209,20 +1252,26 @@ def xlstm_serve(xs: XlstmSize, dev, torch, np, kmlstm):
 # phase 9: timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, torch, runs: int = TIMED_RUNS) -> float:
+def time_ms(fn, torch, runs: int = TIMED_RUNS, clean_l2: bool = False
+            ) -> float:
     """Median device time of ``fn`` in ms: CUDA events around each call,
     the 50 MB L2 flushed before it (the round's operands arrive cold). A
     spin kernel holds the stream while the host enqueues the start event,
     the call and the end event, so the host's launch overhead is not
     counted; a call that waits on the device itself (the plain versions'
-    masked indexing) still counts its host gaps."""
+    masked indexing) still counts its host gaps. The flush writes 64 MB,
+    so the L2 holds dirty lines whose write-back falls inside the timed
+    call; ``clean_l2`` flushes by reading 64 MB instead."""
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if clean_l2:
+            flush.view(torch.float32).sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1441,19 +1490,11 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
     cfg = get_config(ss.arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    pc = serve_paged_case(ss, cfg, gen, dev, torch)
-    q, pool, tables, page_pos, sl = pc
-    pos = (page_pos[:, :, None].long()
-           + torch.arange(ss.page, device=dev)[None, None, :])
-    keys = int(((tables[:, :, None] >= 0) & (pos <= sl.long()[:, None, None]))
-               .sum())
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    reads = q.numel() + keys * 2 * hkv * hd + 2 * tables.numel() + sl.numel()
-    writes = q.numel() + 2 * q.shape[0] * hq
-    entry("paged_attention", f"B={q.shape[0]} ctx={ss.timing_context}",
+    pc, label, flops, nbytes = paged_timing_case(ss, cfg, gen, dev, torch)
+    entry("paged_attention", label,
           lambda: ops.paged_attention(*pc, impl="cuda"),
           lambda: ops.paged_attention(*pc, impl="ref"),
-          (4 * (reads + writes), 4 * hq * hd * keys), ops_rate=frate)
+          (nbytes, flops), ops_rate=frate)
     # flash_attention: one layer of a prefill of a full wave, causal
     trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
     (fq, fk, fv), label, flops, nbytes = flash_timing_case(ss, cfg, gen, dev,
@@ -1468,7 +1509,7 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
     out["flash_attention"][-1].update(
         function_flop=flops,
         fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
-    del fq, fk, fv, pc, q, pool
+    del fq, fk, fv, pc
     # mlstm_scan: one mLSTM block of the xLSTM prefill
     mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
     c = xs.chunk
@@ -1489,16 +1530,19 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
 
 
 # ---------------------------------------------------------------------------
-# --mlstm-ab, --flash-ab: one kernel's checks and timing for other builds
+# --mlstm-ab, --flash-ab, --paged-ab: one kernel's checks and timing for
+# other builds
 # ---------------------------------------------------------------------------
 
 def build_variants(paths, _build, symbol: str, instance: str):
     """Compile each version of one kernel's source into its own library
     under ``build/ab/`` (one ``nvcc`` each, all at once) and load it with
     the C entry point ``symbol``; print each build's ``ptxas -v`` and SASS
-    opcode mix of the kernel whose mangled name holds ``instance``."""
+    opcode mix of the kernel whose mangled name matches ``instance`` (a
+    regular expression)."""
     import ctypes
     import hashlib
+    import re
 
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1523,11 +1567,13 @@ def build_variants(paths, _build, symbol: str, instance: str):
         fn = getattr(lib, symbol)
         fn.argtypes = _build.SIGNATURES[symbol]
         fn.restype = ctypes.c_int
+        # the error strings live in selective_copy.cu, not in this build
+        lib.libra_error_string = lambda rc: b"see cudaError_t"
         libs[p] = lib
         ptxas, run_kernel = [], False
         for ln in log.splitlines():
             if "Compiling entry" in ln:
-                run_kernel = instance in ln
+                run_kernel = re.search(instance, ln) is not None
             elif run_kernel and ("Used" in ln or "spill" in ln):
                 ptxas.append(ln.strip())
         emit({"ab_build": p, "ptxas": ptxas,
@@ -1538,7 +1584,7 @@ def build_variants(paths, _build, symbol: str, instance: str):
 
 def sass_mix(so: Path, nvcc: str, instance: str):
     """The 20 commonest opcodes (with their first modifier) in the code of
-    the kernel whose mangled name holds ``instance`` in a built library
+    the kernel whose mangled name matches ``instance`` in a built library
     (``cuobjdump``): a static count, and the loops are unrolled."""
     import re
 
@@ -1549,7 +1595,7 @@ def sass_mix(so: Path, nvcc: str, instance: str):
                     r"([A-Z][A-Z0-9.]*)")
     for ln in dump.splitlines():
         if "Function :" in ln:
-            inside = instance in ln
+            inside = re.search(instance, ln) is not None
             continue
         m = op.search(ln) if inside else None
         if m:
@@ -1574,30 +1620,40 @@ def ab_parity(libs, _build, run) -> dict:
     return passed
 
 
-def ab_times(libs, _build, fn, torch) -> dict:
+def ab_times(libs, _build, fn, torch, clean_l2: bool = False) -> dict:
     """Median device time of ``fn()`` through each build, in turns (A B
-    ... B A, twice), each a median of ``TIMED_RUNS`` launches."""
+    ... B A, twice), each a median of ``TIMED_RUNS`` launches; a build
+    whose launch fails is reported and left out."""
     def through(lib):
         _build._LIB = lib
         return fn()
     times = {p: [] for p in libs}
     for _ in range(2):
         for p in list(libs) + list(libs)[::-1]:
-            times[p].append(time_ms(lambda: through(libs[p]), torch))
+            if p not in times:
+                continue
+            try:
+                times[p].append(time_ms(lambda: through(libs[p]), torch,
+                                        clean_l2=clean_l2))
+            except RuntimeError as exc:
+                emit({"ab_variant": p, "timing_failed": str(exc)})
+                del times[p]
     return times
 
 
-def ab_report(phase, label, nbytes, flops, times, passed, torch,
-              **extra) -> int:
-    """Print one A/B phase line: each build's median time beside the
-    split-TF32 and float32-FMA bounds of the function; 0 if every build
-    passed its parity phase."""
+def tf32_bounds(nbytes, flops, torch) -> dict:
+    """The split-TF32 and float32-FMA bounds of a tensor-core kernel."""
     trate = peak_ops_per_s(torch, TF32_OPS_PER_SM_CLOCK)
     frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
+    return {"bound_ms": bound(nbytes, TF32_SPLIT_PASSES * flops, trate)[0],
+            "fp32_fma_bound_ms": bound(nbytes, flops, frate)[0]}
+
+
+def ab_report(phase, label, bounds, times, passed, torch, **extra) -> int:
+    """Print one A/B phase line: each build's median time beside the
+    function's ``bounds``; 0 if every build passed its parity phase."""
     emit({"phase": phase, "variant": label, "card": card_line(torch),
-          "runs_per_time": TIMED_RUNS,
-          "bound_ms": bound(nbytes, TF32_SPLIT_PASSES * flops, trate)[0],
-          "fp32_fma_bound_ms": bound(nbytes, flops, frate)[0], **extra,
+          "runs_per_time": TIMED_RUNS, **bounds, **extra,
           "ms": {p: statistics.median(t) for p, t in times.items()},
           "ms_each": times, "parity": passed})
     return 0 if all(passed.values()) else 1
@@ -1623,7 +1679,8 @@ def mlstm_ab(paths, dev, torch, np, ops, _build, serve=False) -> int:
     mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
     times = ab_times(libs, _build, lambda: ops.mlstm_scan(
         *mc, chunk=xs.chunk, impl="cuda", return_state=True), torch)
-    return ab_report("mlstm_ab", label, nbytes, flops, times, passed, torch)
+    return ab_report("mlstm_ab", label, tf32_bounds(nbytes, flops, torch),
+                     times, passed, torch)
 
 
 def flash_ab(paths, dev, torch, ops, _build) -> int:
@@ -1644,9 +1701,49 @@ def flash_ab(paths, dev, torch, ops, _build) -> int:
     times = ab_times(libs, _build, lambda: ops.flash_attention(
         fq, fk, fv, impl="cuda"), torch)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return ab_report("flash_ab", label, nbytes, flops, times, passed, torch,
+    return ab_report("flash_ab", label, tf32_bounds(nbytes, flops, torch),
+                     times, passed, torch,
                      library_ms=time_ms(lambda: sdpa(
                          fq, fk, fv, is_causal=True, enable_gqa=True), torch))
+
+
+def paged_ab(paths, dev, torch, ops, _build) -> int:
+    """Phase 5's paged_attention cases and the decode-layer timing through
+    each build of the paged attention kernel, beside the bytes bound of
+    phase 9's row and each build's achieved rate."""
+    from repro_torch.configs import get_config
+
+    libs = build_variants(paths, _build, "libra_paged_attention",
+                          r"paged_attention_kernelILi128E(?:Li3E)?EEv")
+    ss = ServeSize()
+    cfg = get_config(ss.arch)
+    passed = ab_parity(libs, _build, lambda: attn_parity(
+        ss, cfg, dev, torch, ops, kernels=("paged_attention",)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    pc, label, flops, nbytes = paged_timing_case(ss, cfg, gen, dev, torch)
+    def run():
+        return ops.paged_attention(*pc, impl="cuda")
+    times = ab_times(libs, _build, run, torch)
+    clean = ab_times(libs, _build, run, torch, clean_l2=True)
+    b_ms, b_by, _ = bound(nbytes, flops,
+                          peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK))
+    ms = {p: statistics.median(t) for p, t in times.items()}
+    ms_clean = {p: statistics.median(t) for p, t in clean.items()}
+    # the same bytes read by one PyTorch reduction, as a yardstick of the
+    # rate a plain read reaches under each flush
+    flat = torch.randn(nbytes // 4, device=dev)
+    read_ms = {"dirty_l2": time_ms(flat.sum, torch),
+               "clean_l2": time_ms(flat.sum, torch, clean_l2=True)}
+    return ab_report("paged_ab", label,
+                     {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes},
+                     times, passed, torch,
+                     tb_per_s={p: nbytes / t / 1e9 for p, t in ms.items()},
+                     share_of_bound={p: b_ms / t for p, t in ms.items()},
+                     ms_clean_l2=ms_clean,
+                     share_of_bound_clean_l2={p: b_ms / t
+                                              for p, t in ms_clean.items()},
+                     same_bytes_sum_ms=read_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1682,6 +1779,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--flash-ab"]:
         check(sys.argv[2:], "--flash-ab takes flash_attention.cu sources")
         return flash_ab(sys.argv[2:], dev, torch, ops, _build)
+    if sys.argv[1:2] == ["--paged-ab"]:
+        check(sys.argv[2:], "--paged-ab takes paged_attention.cu sources")
+        return paged_ab(sys.argv[2:], dev, torch, ops, _build)
     size = Size()
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
