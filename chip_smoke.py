@@ -11,9 +11,13 @@ order:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
-   ones, with every optional operand on and off. Outputs must be
-   bit-identical (``torch.equal``, the whole pool after the in-place anchor
-   included) and the pool tensor must keep its storage.
+   ones, with every optional operand on and off: ``fused_round`` at ring
+   depths ``n_buffers`` 0, 2, 3 and 4, also on edge rows (a payload window
+   off its 16-byte boundary; S = 31, the 4-byte copy path), a 70 x 40
+   policy table (read from global memory) and pages of two tiles;
+   ``selective_gather`` also at a page of 6 tokens and of two tiles.
+   Outputs must be bit-identical (``torch.equal``, the whole pool after the
+   in-place anchor included) and the pool tensor must keep its storage.
 2. **e2e plaintext** -- a policy-routed ``ProxyRuntime(batched=True)`` of 64
    channels x 16 messages (256 metadata tokens, 4096-16384 payload tokens)
    over a ``LibraStack(n_shards=4, pages_per_shard=8192, page_size=1024)``:
@@ -63,7 +67,11 @@ order:
    profiler split of the prefill.
 9. **timing** -- each kernel, its plain version and (where one exists) a
    single PyTorch library call at the main path's shapes: CUDA events
-   around each launch, L2 flushed before it, median of 30 launches; the
+   around each launch, L2 flushed before it, median of 30 launches (the
+   datapath kernels also after a 64 MB read that leaves the L2 clean,
+   ``fused_round`` at each ring depth, ``selective_gather`` beside a
+   ``copy_`` of as many bytes as it writes; a kernel that returns at once,
+   the timing's floor, on a line of its own); the
    bound is the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the card's peak for their type (int32 for the
    datapath, float32 FMA for paged attention; for flash attention and the
@@ -90,7 +98,16 @@ phase 5 against each build and phase 9's prefill-layer timing of each, in
 turns. ``python3 chip_smoke.py --paged-ab A.cu B.cu ...`` does the same
 for versions of ``csrc/paged_attention.cu``: the ``paged_attention`` cases
 of phase 5 and phase 9's decode-layer timing, with the row's bytes bound,
-each build's TB/s and its share of the bound. The modes compile with
+each build's TB/s and its share of the bound. ``--gather-ab`` and
+``--fused-ab`` do the same for ``csrc/selective_gather.cu`` and
+``csrc/fused_round.cu``: the kernel's cases of phase 1 and the
+deployment's timing under both flushes, beside a kernel that returns at
+once (and, for the gather, ``index_select`` of its rows and a ``copy_`` of
+as many bytes as it writes; the fused round at ring depths 0, 2, 3, 4 and
+8; a ``fused_round.cu`` whose entry point has no depth argument runs every
+depth alike). A header next to a source is found before the one in
+``csrc/``, so an earlier commit's sources can bring their own. The modes
+compile with
 ``-I src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
 shared header ``tf32_mma.cuh``, and print each build's ``ptxas -v`` and
 SASS opcode mix of its run-shape instantiation.
@@ -150,6 +167,8 @@ KERNELS = {
 }
 DATAPATH = ("selective_copy", "selective_gather", "policy_match",
             "fused_round")
+# fused_round's ring depths held and timed: 0 is the wrapper's default
+FUSED_DEPTHS = (0, 2, 3, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,7 +305,7 @@ def run_pair(fn_kernel, fn_plain, pool_k, pool_r, torch):
     return out_k, out_r
 
 
-def parity(size: Size, dev, torch, np, ops, tt):
+def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
     rng = np.random.default_rng(11)
     results = []
 
@@ -302,11 +321,12 @@ def parity(size: Size, dev, torch, np, ops, tt):
     big = dict(b=size.channels, page=size.page, pps=size.pps,
                meta_max=size.meta_max)
     # -- selective_copy: deployment, small ragged, edge rows --------------
-    cases = [("deploy", widen(selcopy_dict(tt.selcopy_crypto_case(rng, **big)),
-                              size.pool_rows, rng, np), size.meta_max),
-             ("small", selcopy_dict(tt.selcopy_crypto_case(rng, **SMALL)),
-              SMALL["meta_max"]),
-             ("edge", selcopy_dict(tt.edge_rows_case()), 8)]
+    cases = [] if "selective_copy" not in kernels else [
+        ("deploy", widen(selcopy_dict(tt.selcopy_crypto_case(rng, **big)),
+                         size.pool_rows, rng, np), size.meta_max),
+        ("small", selcopy_dict(tt.selcopy_crypto_case(rng, **SMALL)),
+         SMALL["meta_max"]),
+        ("edge", selcopy_dict(tt.edge_rows_case()), 8)]
     for label, case, meta_max in cases:
         for crypto in (False, True):
             c = tt.to_torch(case, dev)
@@ -322,12 +342,16 @@ def parity(size: Size, dev, torch, np, ops, tt):
             check(ok[1] is pk, "selective_copy returned another pool")
             record("selective_copy", f"{label}/{'ks' if crypto else 'plain'}",
                    ok, orr)
-    # -- selective_gather ---------------------------------------------------
-    gcases = [("deploy", tt.selgather_case(
-        rng, b=size.channels, page=size.page, pps=size.pps,
-        p_total=size.pool_rows - 1)),
+    # -- selective_gather: deployment, small, a page of 6 tokens (no
+    # 16-byte row alignment: the 4-byte copy path), pages of two tiles ---
+    gcases = [] if "selective_gather" not in kernels else [
+        ("deploy", tt.selgather_case(
+            rng, b=size.channels, page=size.page, pps=size.pps,
+            p_total=size.pool_rows - 1)),
         ("small", tt.selgather_case(rng, b=SMALL["b"], page=SMALL["page"],
-                                    pps=SMALL["pps"]))]
+                                    pps=SMALL["pps"])),
+        ("odd-page", tt.selgather_case(rng, b=5, page=6, pps=3)),
+        ("two-tile-page", tt.selgather_case(rng, b=3, page=2048, pps=2))]
     for label, case in gcases:
         pool, tables, lengths, ks = tt.to_torch(case, dev)
         for crypto in (False, True):
@@ -341,9 +365,10 @@ def parity(size: Size, dev, torch, np, ops, tt):
             record("selective_gather",
                    f"{label}/{'ks' if crypto else 'plain'}", ok, orr)
     # -- policy_match: the deployment table, a wide table, small ---------
-    pcases = [("deploy", tt.policy_payload_case(
-        rng, b=size.channels, meta_max=size.meta_max, r=3, k=1,
-        w=size.page), 3),
+    pcases = [] if "policy_match" not in kernels else [
+        ("deploy", tt.policy_payload_case(
+            rng, b=size.channels, meta_max=size.meta_max, r=3, k=1,
+            w=size.page), 3),
         ("wide", tt.policy_payload_case(rng, b=9, meta_max=40, r=70, k=40,
                                         w=16), 70),
         ("small", tt.policy_payload_case(rng, b=6, meta_max=12, r=7, k=3,
@@ -371,15 +396,16 @@ def parity(size: Size, dev, torch, np, ops, tt):
                                              **kw),),
                 None, None, torch)
             record("policy_match", f"{label}/{vname}", ok, orr)
-    t = tt.to_torch(dict(meta=pcases[2][1][0], ml=pcases[2][1][1],
-                         none=np.zeros((0, 3), np.int32)), dev)
-    ok, orr = run_pair(
-        lambda _p: (ops.policy_match(t["meta"], t["ml"], t["none"], t["none"],
-                                     t["none"], impl="cuda"),),
-        lambda _p: (ops.policy_match(t["meta"], t["ml"], t["none"], t["none"],
-                                     t["none"], impl="ref"),),
-        None, None, torch)
-    record("policy_match", "no-rules", ok, orr)
+    if pcases:
+        t = tt.to_torch(dict(meta=pcases[2][1][0], ml=pcases[2][1][1],
+                             none=np.zeros((0, 3), np.int32)), dev)
+        ok, orr = run_pair(
+            lambda _p: (ops.policy_match(t["meta"], t["ml"], t["none"],
+                                         t["none"], t["none"], impl="cuda"),),
+            lambda _p: (ops.policy_match(t["meta"], t["ml"], t["none"],
+                                         t["none"], t["none"], impl="ref"),),
+            None, None, torch)
+        record("policy_match", "no-rules", ok, orr)
     # -- fused_round ---------------------------------------------------------
     operand_sets = {
         "none": (),
@@ -390,28 +416,46 @@ def parity(size: Size, dev, torch, np, ops, tt):
         "all": ("keystream", "tx_keystream", "cond_off", "cond_lo",
                 "cond_hi", "live", "meta_ks"),
     }
-    fcases = [("deploy", widen(tt.fused_round_case(rng, r=3, k=1, **big),
-                               size.pool_rows, rng, np), size.meta_max),
-              ("small", tt.fused_round_case(rng, r=6, k=3, **SMALL),
-               SMALL["meta_max"])]
-    for label, case, meta_max in fcases:
-        for oname, keys in operand_sets.items():
+    # with a policy table and both keystreams: edge rows (meta_len 0, 5
+    # and 8: a window off its 16-byte boundary), the same with S = 31 (the
+    # 4-byte copy path), a 70 x 40 table past the shared-memory budget,
+    # and pages of two tiles
+    with_policy = {k: operand_sets[k] for k in ("crypto+policy+live", "all")}
+    fcases = [] if "fused_round" not in kernels else [
+        ("deploy", widen(tt.fused_round_case(rng, r=3, k=1, **big),
+                         size.pool_rows, rng, np), size.meta_max,
+         operand_sets),
+        ("small", tt.fused_round_case(rng, r=6, k=3, **SMALL),
+         SMALL["meta_max"], operand_sets),
+        ("edge", tt.edge_fused_round_case(), 8, with_policy),
+        ("edge-odd-s", tt.edge_fused_round_case(meta_max=7), 7, with_policy),
+        ("wide-table", tt.fused_round_case(rng, b=9, page=16, pps=3,
+                                           meta_max=40, r=70, k=40), 40,
+         with_policy),
+        ("two-tile-page", tt.fused_round_case(rng, b=3, page=2048, pps=2,
+                                              meta_max=16), 16, with_policy)]
+    for label, case, meta_max, sets in fcases:
+        for oname, keys in sets.items():
             c = tt.to_torch(case, dev)
             kw = {k: c[k] for k in keys}
 
-            def run(impl, pool):
+            def run(impl, pool, depth=0):
                 return ops.fused_round(
                     c["stream"], c["meta_len"], c["total_len"], pool,
-                    c["tables"], meta_max=meta_max, impl=impl, **kw)
-            pk, pr = c["pool"], c["pool"].clone()
-            ok, orr = run_pair(lambda p: run("cuda", p),
-                               lambda p: run("ref", p), pk, pr, torch)
-            check(ok[1] is pk, "fused_round returned another pool")
-            record("fused_round", f"{label}/{oname}", ok, orr)
+                    c["tables"], meta_max=meta_max, impl=impl,
+                    n_buffers=depth, **kw)
+            want = run("ref", c["pool"].clone())
+            for depth in FUSED_DEPTHS:      # bit-identical at every depth
+                pk = c["pool"].clone()
+                ok, orr = run_pair(lambda p: run("cuda", p, depth),
+                                   lambda _p: want, pk, None, torch)
+                check(ok[1] is pk, "fused_round returned another pool")
+                record("fused_round", f"{label}/{oname}/n_buffers={depth}",
+                       ok, orr)
     emit({"phase": "parity", "cases": len(results),
           "all_equal": all(r["equal"] for r in results),
           "max_abs_err": {k: max(r["max_abs_err"] for r in results
-                                 if r["kernel"] == k) for k in DATAPATH}})
+                                 if r["kernel"] == k) for k in kernels}})
     return results
 
 
@@ -1369,6 +1413,65 @@ def flash_timing_case(ss: ServeSize, cfg, gen, dev, torch):
         nbytes
 
 
+def gather_timing_case(size: Size, rng, dev, np, tt):
+    """The deployment's egress gather (64 rows x 16 pages of 1024 tokens
+    out of the 128 MiB pool), the index of its table rows for
+    ``index_select``, and the bytes the function moves: the live pool
+    tokens (and as many keystream tokens) read, the table and lengths
+    read, the whole output written."""
+    pool, tables, lengths, gks = tt.selgather_case(
+        rng, b=size.channels, page=size.page, pps=size.pps,
+        p_total=size.pool_rows - 1)
+    g = tt.to_torch(dict(pool=pool, tables=tables, lengths=lengths, ks=gks),
+                    dev)
+    n_g = gathered_tokens(tables, lengths, size.page, np)
+    rows_idx = g["tables"].reshape(-1).long().clamp(min=0)
+
+    def nbytes(crypto):
+        reads = n_g * (2 if crypto else 1) + tables.size + len(lengths)
+        return 4 * (reads + tables.size * size.page)
+    return g, rows_idx, n_g, nbytes
+
+
+def fused_timing_case(size: Size, rng, dev, np, tt):
+    """The deployment's fused round (64 rows, 16 pages of 1024 tokens,
+    256 metadata tokens, the three-rule table), its operands by variant
+    and the bytes and operations of each: payload lanes of the stream (and
+    RX and TX keystreams) read, written once to the pool and once to the
+    output, the metadata block, the tokens the conditions read, the
+    tables."""
+    big = dict(b=size.channels, page=size.page, pps=size.pps,
+               meta_max=size.meta_max)
+    page, mm = size.page, size.meta_max
+    case = widen(tt.fused_round_case(rng, r=3, k=1, **big), size.pool_rows,
+                 rng, np)
+    f = tt.to_torch(case, dev)
+    ml, tl, tb = case["meta_len"], case["total_len"], case["tables"]
+    b, s = case["stream"].shape
+    n_pay = anchored_tokens(ml, tl, tb, page, s, np)
+    n_meta = int(np.minimum(ml, mm).sum())
+    refs = policy_refs(case["cond_off"], ml, mm, tl - ml, page, np)
+    variants = {}
+    for crypto in (False, True):
+        keys = ["cond_off", "cond_lo", "cond_hi"]
+        if crypto:
+            keys += ["keystream", "tx_keystream"]
+        per_tok = 3 if crypto else 1        # stream (+ RX ks, + TX ks)
+        reads = (n_pay * per_tok + n_meta + refs * (2 if crypto else 1)
+                 + tb.size + 2 * b + 3 * case["cond_off"].size)
+        writes = n_pay + b * mm + tb.size * page + b
+        variants["ks+policy" if crypto else "plain+policy"] = (
+            {k: f[k] for k in keys}, 4 * (reads + writes),
+            n_pay * (1 + 2 * crypto) + 3 * refs)
+    return f, variants
+
+
+def empty_kernel_ms(torch) -> float:
+    """This timing's floor: ``time_ms`` of a kernel that returns at once
+    (``torch.cuda._sleep(0)``, one block of one thread)."""
+    return time_ms(lambda: torch.cuda._sleep(0), torch)
+
+
 def card_line(torch) -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     smi = subprocess.run(
@@ -1389,14 +1492,24 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
     frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
     out = {}
 
-    def entry(name, variant, k_fn, r_fn, bnd, lib_fn=None, ops_rate=rate):
+    def entry(name, variant, k_fn, r_fn, bnd, lib_fn=None, ops_rate=rate,
+              clean=False):
         b_ms, b_by, b_bytes = bound(*bnd, ops_rate)
         row = dict(variant=variant, ms=time_ms(k_fn, torch),
-                   plain_ms=time_ms(r_fn, torch, runs=20),
+                   plain_ms=time_ms(r_fn, torch, runs=20) if r_fn else None,
                    bound_ms=b_ms, bound_by=b_by, bytes=b_bytes,
                    library_ms=(time_ms(lib_fn, torch) if lib_fn else None))
+        if clean:   # the same after a 64 MB read, which leaves no dirty line
+            row.update(ms_clean_l2=time_ms(k_fn, torch, clean_l2=True))
+            if lib_fn:
+                row.update(library_ms_clean_l2=time_ms(lib_fn, torch,
+                                                       clean_l2=True))
         out.setdefault(name, []).append(row)
+        return row
 
+    floor = empty_kernel_ms(torch)
+    emit({"phase": "timing_floor", "empty_kernel_ms": floor,
+          "what": "time_ms of torch.cuda._sleep(0), under the write flush"})
     # selective_copy
     case = widen(selcopy_dict(tt.selcopy_crypto_case(rng, **big)),
                  size.pool_rows, rng, np)
@@ -1420,27 +1533,29 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
                                          c["tables"], meta_max=mm,
                                          impl="ref", keystream=ks),
               (4 * (reads + writes), n_pay * (1 + crypto)))
-    # selective_gather
-    pool, tables, lengths, gks = tt.selgather_case(
-        rng, b=size.channels, page=page, pps=size.pps,
-        p_total=size.pool_rows - 1)
-    g = tt.to_torch(dict(pool=pool, tables=tables, lengths=lengths, ks=gks),
-                    dev)
-    n_g = gathered_tokens(tables, lengths, page, np)
-    rows_idx = g["tables"].reshape(-1).long().clamp(min=0)
+    # selective_gather, beside index_select of its rows and a copy_ of as
+    # many bytes as it writes
+    g, rows_idx, n_g, g_bytes = gather_timing_case(size, rng, dev, np, tt)
+    src = torch.empty_like(g["ks"])
+    dst = torch.empty_like(src)
+    copy_ms = {"dirty_l2": time_ms(lambda: dst.copy_(src), torch),
+               "clean_l2": time_ms(lambda: dst.copy_(src), torch,
+                                   clean_l2=True)}
     for crypto in (False, True):
         ks = g["ks"] if crypto else None
-        reads = n_g * (2 if crypto else 1) + tables.size + len(lengths)
-        writes = tables.size * page
-        entry("selective_gather", "ks" if crypto else "plain",
-              lambda: ops.selective_gather(g["pool"], g["tables"],
-                                           g["lengths"], impl="cuda",
-                                           keystream=ks),
-              lambda: ops.selective_gather(g["pool"], g["tables"],
-                                           g["lengths"], impl="ref",
-                                           keystream=ks),
-              (4 * (reads + writes), n_g * crypto),
-              lib_fn=lambda: torch.index_select(g["pool"], 0, rows_idx))
+        row = entry("selective_gather", "ks" if crypto else "plain",
+                    lambda: ops.selective_gather(g["pool"], g["tables"],
+                                                 g["lengths"], impl="cuda",
+                                                 keystream=ks),
+                    lambda: ops.selective_gather(g["pool"], g["tables"],
+                                                 g["lengths"], impl="ref",
+                                                 keystream=ks),
+                    (g_bytes(crypto), n_g * crypto),
+                    lib_fn=lambda: torch.index_select(g["pool"], 0,
+                                                      rows_idx),
+                    clean=True)
+        row.update(same_bytes_copy_ms=copy_ms)
+    del src, dst
     # policy_match: the deployment's three rules, payload window on
     meta, pml, off, lo, hi, pks, pw, pln = tt.policy_payload_case(
         rng, b=size.channels, meta_max=mm, r=3, k=1, w=page)
@@ -1458,32 +1573,23 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
                                        p["hi"], impl="ref", keystream=ks,
                                        payload=p["pw"], payload_len=p["pln"]),
               (4 * (reads + len(pml)), 3 * refs))
-    # fused_round: plaintext with policy; then both keystreams + policy
-    case = widen(tt.fused_round_case(rng, r=3, k=1, **big), size.pool_rows,
-                 rng, np)
-    f = tt.to_torch(case, dev)
-    ml, tl, tb = case["meta_len"], case["total_len"], case["tables"]
-    b, s = case["stream"].shape
-    n_pay = anchored_tokens(ml, tl, tb, page, s, np)
-    n_meta = int(np.minimum(ml, mm).sum())
-    refs = policy_refs(case["cond_off"], ml, mm, tl - ml, page, np)
-    for crypto in (False, True):
-        keys = ["cond_off", "cond_lo", "cond_hi"]
-        if crypto:
-            keys += ["keystream", "tx_keystream"]
-        kw = {k: f[k] for k in keys}
-        per_tok = 3 if crypto else 1        # stream (+ RX ks, + TX ks)
-        reads = (n_pay * per_tok + n_meta + refs * (2 if crypto else 1)
-                 + tb.size + 2 * b + 3 * case["cond_off"].size)
-        writes = n_pay + b * mm + tb.size * page + b
-        entry("fused_round", "ks+policy" if crypto else "plain+policy",
-              lambda: ops.fused_round(f["stream"], f["meta_len"],
-                                      f["total_len"], f["pool"], f["tables"],
-                                      meta_max=mm, impl="cuda", **kw),
-              lambda: ops.fused_round(f["stream"], f["meta_len"],
-                                      f["total_len"], f["pool"], f["tables"],
-                                      meta_max=mm, impl="ref", **kw),
-              (4 * (reads + writes), n_pay * (1 + 2 * crypto) + 3 * refs))
+    # fused_round: plaintext with policy, then both keystreams + policy,
+    # at each ring depth (the first row, n_buffers = 0, is the main path's)
+    f, fvars = fused_timing_case(size, rng, dev, np, tt)
+    for vname, (kw, nbytes, nops) in fvars.items():
+        for depth in FUSED_DEPTHS:
+            entry("fused_round", f"{vname} n_buffers={depth}",
+                  lambda: ops.fused_round(f["stream"], f["meta_len"],
+                                          f["total_len"], f["pool"],
+                                          f["tables"], meta_max=mm,
+                                          impl="cuda", n_buffers=depth,
+                                          **kw),
+                  None if depth else (
+                      lambda: ops.fused_round(f["stream"], f["meta_len"],
+                                              f["total_len"], f["pool"],
+                                              f["tables"], meta_max=mm,
+                                              impl="ref", **kw)),
+                  (nbytes, nops), clean=True)
     # paged_attention: one layer of a decode step of a full wave
     from repro_torch.configs import get_config
 
@@ -1522,7 +1628,7 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
     out["mlstm_scan"][-1].update(
         function_flop=flops,
         fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
-    emit({"phase": "timing", "runs": TIMED_RUNS,
+    emit({"phase": "timing", "runs": TIMED_RUNS, "empty_kernel_ms": floor,
           "int32_ops_per_s": rate, "fp32_ops_per_s": frate,
           "tf32_ops_per_s": trate,
           "hbm_bytes_per_s": HBM_BYTES_PER_S, "kernels": out})
@@ -1550,8 +1656,12 @@ def build_variants(paths, _build, symbol: str, instance: str):
     t0 = time.perf_counter()
     for p in paths:
         src = Path(p).resolve()
+        # a header next to the source (an earlier commit's, unpacked with
+        # it) is found before the one in csrc/
+        headers = sorted(src.parent.glob("*.cuh")) + sorted(
+            _build.CSRC.glob("*.cuh"))
         tag = hashlib.sha256(src.read_bytes()
-                             + (_build.CSRC / "tf32_mma.cuh").read_bytes()
+                             + b"".join(h.read_bytes() for h in headers)
                              + " ".join(_build.NVCC_FLAGS).encode())
         so = out_dir / f"{src.stem}_{tag.hexdigest()[:12]}.so"
         cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-Xptxas",
@@ -1565,7 +1675,18 @@ def build_variants(paths, _build, symbol: str, instance: str):
         check(proc.returncode == 0, f"nvcc failed on {p}:\n{log}")
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, symbol)
-        fn.argtypes = _build.SIGNATURES[symbol]
+        sig = _build.SIGNATURES[symbol]
+        decl = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)",
+                         Path(p).read_text())
+        argc = len([a for a in decl.group(1).split(",") if a.strip()])
+        if argc == len(sig) - 1:
+            # an entry point from before its last int argument (the
+            # fused round's ring depth): the call drops that argument
+            fn.argtypes = sig[:-2] + sig[-1:]
+            setattr(lib, symbol, lambda *a, _fn=fn: _fn(*a[:-2], a[-1]))
+        else:
+            check(argc == len(sig), f"{p}: {symbol} takes {argc} arguments")
+            fn.argtypes = sig
         fn.restype = ctypes.c_int
         # the error strings live in selective_copy.cu, not in this build
         lib.libra_error_string = lambda rc: b"see cudaError_t"
@@ -1722,20 +1843,29 @@ def paged_ab(paths, dev, torch, ops, _build) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
     pc, label, flops, nbytes = paged_timing_case(ss, cfg, gen, dev, torch)
-    def run():
-        return ops.paged_attention(*pc, impl="cuda")
-    times = ab_times(libs, _build, run, torch)
-    clean = ab_times(libs, _build, run, torch, clean_l2=True)
-    b_ms, b_by, _ = bound(nbytes, flops,
-                          peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK))
-    ms = {p: statistics.median(t) for p, t in times.items()}
-    ms_clean = {p: statistics.median(t) for p, t in clean.items()}
     # the same bytes read by one PyTorch reduction, as a yardstick of the
     # rate a plain read reaches under each flush
     flat = torch.randn(nbytes // 4, device=dev)
-    read_ms = {"dirty_l2": time_ms(flat.sum, torch),
-               "clean_l2": time_ms(flat.sum, torch, clean_l2=True)}
-    return ab_report("paged_ab", label,
+    return ab_bytes_report(
+        "paged_ab", label, libs, _build,
+        lambda: ops.paged_attention(*pc, impl="cuda"), torch, passed,
+        nbytes, flops, peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK),
+        same_bytes_sum_ms={"dirty_l2": time_ms(flat.sum, torch),
+                           "clean_l2": time_ms(flat.sum, torch,
+                                               clean_l2=True)})
+
+
+def ab_bytes_report(phase, label, libs, _build, fn, torch, passed, nbytes,
+                    ops_, ops_rate, **extra) -> int:
+    """Time ``fn()`` through each build in turns under both flushes and
+    print one A/B line beside the bound of these bytes and operations:
+    each build's TB/s and share of the bound."""
+    times = ab_times(libs, _build, fn, torch)
+    clean = ab_times(libs, _build, fn, torch, clean_l2=True)
+    b_ms, b_by, _ = bound(nbytes, ops_, ops_rate)
+    ms = {p: statistics.median(t) for p, t in times.items()}
+    ms_clean = {p: statistics.median(t) for p, t in clean.items()}
+    return ab_report(phase, label,
                      {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes},
                      times, passed, torch,
                      tb_per_s={p: nbytes / t / 1e9 for p, t in ms.items()},
@@ -1743,7 +1873,79 @@ def paged_ab(paths, dev, torch, ops, _build) -> int:
                      ms_clean_l2=ms_clean,
                      share_of_bound_clean_l2={p: b_ms / t
                                               for p, t in ms_clean.items()},
-                     same_bytes_sum_ms=read_ms)
+                     **extra)
+
+
+def gather_ab(paths, dev, torch, np, ops, tt, _build) -> int:
+    """Phase 1's selective_gather cases and the deployment's gather timing
+    (plain and with the TX keystream) through each build of the gather
+    kernel, beside ``index_select`` of its rows, a ``copy_`` of as many
+    bytes as it writes and a kernel that returns at once."""
+    libs = build_variants(paths, _build, "libra_selective_gather",
+                          "selective_gather")
+    size = Size()
+    passed = ab_parity(libs, _build, lambda: parity(
+        size, dev, torch, np, ops, tt, kernels=("selective_gather",)))
+    g, rows_idx, n_g, nbytes = gather_timing_case(
+        size, np.random.default_rng(29), dev, np, tt)
+    src = torch.empty_like(g["ks"])
+    dst = torch.empty_like(src)
+
+    def both(fn):
+        return {"dirty_l2": time_ms(fn, torch),
+                "clean_l2": time_ms(fn, torch, clean_l2=True)}
+    yard = dict(library_ms=both(lambda: torch.index_select(g["pool"], 0,
+                                                           rows_idx)),
+                same_bytes_copy_ms=both(lambda: dst.copy_(src)),
+                empty_kernel_ms=both(lambda: torch.cuda._sleep(0)))
+    rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
+    rc = 0
+    for crypto in (False, True):
+        ks = g["ks"] if crypto else None
+        rc |= ab_bytes_report(
+            "gather_ab", "ks" if crypto else "plain", libs, _build,
+            lambda: ops.selective_gather(g["pool"], g["tables"],
+                                         g["lengths"], impl="cuda",
+                                         keystream=ks),
+            torch, passed, nbytes(crypto), n_g * crypto, rate, **yard)
+    return rc
+
+
+def fused_ab(paths, dev, torch, np, ops, tt, _build) -> int:
+    """Phase 1's fused_round cases and the deployment's fused-round timing
+    (plain + policy, both keystreams + policy, and plain without the
+    policy table) at each ring depth through each build of the fused
+    round kernel (an entry point without the depth argument runs every
+    depth alike), beside a kernel that returns at once."""
+    libs = build_variants(paths, _build, "libra_fused_round",
+                          "fused_round")
+    size = Size()
+    passed = ab_parity(libs, _build, lambda: parity(
+        size, dev, torch, np, ops, tt, kernels=("fused_round",)))
+    f, fvars = fused_timing_case(size, np.random.default_rng(29), dev, np,
+                                 tt)
+    kw, nbytes, nops = fvars["plain+policy"]
+    # without the table: the verdict's table, tokens and output drop out
+    fvars["plain, no policy"] = ({}, nbytes - 4 * (
+        3 * f["cond_off"].numel() + policy_refs(
+            f["cond_off"].cpu().numpy(), f["meta_len"].cpu().numpy(),
+            size.meta_max, (f["total_len"] - f["meta_len"]).cpu().numpy(),
+            size.page, np) + size.channels), 0)
+    rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
+    floor = {"dirty_l2": time_ms(lambda: torch.cuda._sleep(0), torch),
+             "clean_l2": time_ms(lambda: torch.cuda._sleep(0), torch,
+                                 clean_l2=True)}
+    rc = 0
+    for vname, (kw, nbytes, nops) in fvars.items():
+        for depth in FUSED_DEPTHS + (8,):
+            rc |= ab_bytes_report(
+                "fused_ab", f"{vname} n_buffers={depth}", libs, _build,
+                lambda: ops.fused_round(f["stream"], f["meta_len"],
+                                        f["total_len"], f["pool"],
+                                        f["tables"], meta_max=size.meta_max,
+                                        impl="cuda", n_buffers=depth, **kw),
+                torch, passed, nbytes, nops, rate, empty_kernel_ms=floor)
+    return rc
 
 
 # ---------------------------------------------------------------------------
@@ -1782,6 +1984,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--paged-ab"]:
         check(sys.argv[2:], "--paged-ab takes paged_attention.cu sources")
         return paged_ab(sys.argv[2:], dev, torch, ops, _build)
+    if sys.argv[1:2] == ["--gather-ab"]:
+        check(sys.argv[2:], "--gather-ab takes selective_gather.cu sources")
+        return gather_ab(sys.argv[2:], dev, torch, np, ops, tt, _build)
+    if sys.argv[1:2] == ["--fused-ab"]:
+        check(sys.argv[2:], "--fused-ab takes fused_round.cu sources")
+        return fused_ab(sys.argv[2:], dev, torch, np, ops, tt, _build)
     size = Size()
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)

@@ -37,7 +37,7 @@ SIGNATURES = {
     "libra_selective_copy": [_P] * 7 + [_I] * 6 + [_P],
     "libra_selective_gather": [_P] * 5 + [_I] * 4 + [_P],
     "libra_policy_match": [_P] * 10 + [_I] * 5 + [_P],
-    "libra_fused_round": [_P] * 15 + [_I] * 8 + [_P],
+    "libra_fused_round": [_P] * 15 + [_I] * 9 + [_P],
     "libra_paged_attention": [_P] * 8 + [_I] * 7 + [_P],
     "libra_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "libra_mlstm_scan": [_P] * 9 + [_I] * 4 + [_P],

@@ -144,13 +144,17 @@ def fused_round(stream, meta_len, total_len, pool, tables, *, meta_max,
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor], torch.Tensor]:
     """The one-launch scheduling round: ``(meta, pool, verdict | None,
-    out)``. ``n_buffers`` (the TPU kernel's VMEM ring depth) is accepted
-    and ignored, as the plain version ignores it."""
-    del n_buffers, donate_pool
+    out)``. ``n_buffers`` is the kernel's ring depth, as it is the TPU
+    kernel's VMEM staging depth: 0 runs the kernel's default depth, 2 and
+    up that many slots; 1 and negative values raise ``ValueError`` on
+    every device. The plain version computes the same at any depth."""
+    del donate_pool
+    _k.ring_depth(n_buffers)
     kw = dict(meta_max=meta_max, keystream=keystream,
               tx_keystream=tx_keystream, cond_off=cond_off, cond_lo=cond_lo,
               cond_hi=cond_hi, live=live, meta_ks=meta_ks)
     if resolve(impl, pool) == "cuda":
-        return _k.fused_round(stream, meta_len, total_len, pool, tables, **kw)
+        return _k.fused_round(stream, meta_len, total_len, pool, tables,
+                              n_buffers=n_buffers, **kw)
     return _ref.fused_round_ref(stream, meta_len, total_len, pool, tables,
                                 **kw)

@@ -27,6 +27,57 @@ LAUNCHES = {"selective_copy": 0, "selective_gather": 0, "policy_match": 0,
 
 _MAX_GRID_Y = 65535
 
+#: tokens of one ring tile (``kTile`` in ``csrc/datapath.cuh``): a page
+#: larger than this is several tiles
+TILE = 1024
+#: bytes of the policy table (``cond_off``, ``cond_lo``, ``cond_hi``,
+#: ``live``) that ``fused_round`` copies into shared memory once a block;
+#: a larger table is read from global memory (``kTableBudget``)
+TABLE_BUDGET = 8192
+#: ``fused_round``'s ring depth at ``n_buffers=0``, the depth measured
+#: best at the deployment's shape (PERF.md, section 6)
+DEFAULT_FUSED_DEPTH = 2
+
+
+def ring_depth(n_buffers: int) -> int:
+    """``fused_round``'s ring depth for an ``n_buffers`` argument: the
+    default for 0, ``n_buffers`` itself from 2 up. 1 and negative values
+    raise ``ValueError``, as the TPU kernel refuses them."""
+    if n_buffers == 0:
+        return DEFAULT_FUSED_DEPTH
+    if n_buffers < 2:
+        raise ValueError(f"fused_round: n_buffers={n_buffers}; expected 0 "
+                         "(the default depth) or a ring depth >= 2")
+    return int(n_buffers)
+
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def fused_round_smem_bytes(depth: int, *, page: int, meta_max: int,
+                           has_ks: bool, has_policy: bool, has_meta_ks: bool,
+                           r: int, k: int) -> int:
+    """Dynamic shared memory of one ``fused_round`` block, as
+    ``ring_layout`` in ``csrc/fused_round.cu`` lays it out: ``depth``
+    slots (a tile window of the stream and of the RX keystream, and for
+    the metadata task its window and the metadata keystream's), a
+    32-byte task record and an 8-byte barrier a slot, two staged task
+    records, and the policy table when it fits :data:`TABLE_BUDGET`."""
+    tile = _up4(min(page, TILE)) + 4
+    mw = _up4(min(meta_max, TILE))
+    off_meta = tile * (1 + has_ks) if has_policy else 0
+    slot = max(tile * (1 + has_ks),
+               off_meta + mw * (1 + (has_policy and has_meta_ks)))
+    table = 4 * (3 * r * k + r) if has_policy else 0
+    table = _up4(table) if table <= TABLE_BUDGET else 0
+    return depth * (4 * slot + 32 + 8) + 2 * 32 + table
+
+
+def _smem_limit(dev: torch.device) -> Optional[int]:
+    return getattr(torch.cuda.get_device_properties(dev),
+                   "shared_memory_per_block_optin", None)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -149,10 +200,18 @@ def fused_round(stream: torch.Tensor, meta_len: torch.Tensor,
                 cond_hi: Optional[torch.Tensor] = None,
                 live: Optional[torch.Tensor] = None,
                 meta_ks: Optional[torch.Tensor] = None,
+                n_buffers: int = 0,
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor], torch.Tensor]:
     """One scheduling round in one launch: ``(meta, pool, verdict | None,
-    out)``, the pool anchored in place (``fused_round_ref`` semantics)."""
+    out)``, the pool anchored in place (``fused_round_ref`` semantics).
+    ``n_buffers`` is the depth of each block's shared-memory ring (the
+    copies of a task go out ``depth - 1`` tasks ahead): 0 takes
+    :data:`DEFAULT_FUSED_DEPTH`, 1 and negative values raise
+    ``ValueError``, and a depth whose ring does not fit the card's shared
+    memory raises ``ValueError`` with the limit. Results are identical at
+    every depth."""
+    depth = ring_depth(n_buffers)
     b, s = stream.shape
     p_ext, page = pool.shape
     pps = tables.shape[1]
@@ -182,11 +241,19 @@ def fused_round(stream: torch.Tensor, meta_len: torch.Tensor,
     out = torch.empty((b, pps * page), dtype=torch.int32, device=dev)
     verdict = (torch.empty((b,), dtype=torch.int32, device=dev)
                if has_policy else None)
+    smem = fused_round_smem_bytes(
+        depth, page=page, meta_max=meta_max, has_ks=keystream is not None,
+        has_policy=has_policy, has_meta_ks=meta_ks is not None, r=r, k=k)
+    limit = _smem_limit(dev)
+    if limit is not None and smem > limit:
+        raise ValueError(f"fused_round: a ring of {depth} slots needs {smem} "
+                         f"bytes of shared memory a block; the card allows "
+                         f"{limit}")
     if b == 0:
         return meta, pool, verdict, out
     _launch("fused_round", dev, _ptr(stream), _ptr(keystream),
             _ptr(tx_keystream), _ptr(meta_len), _ptr(total_len), _ptr(tables),
             _ptr(pool), _ptr(meta), _ptr(out), _ptr(cond_off), _ptr(cond_lo),
             _ptr(cond_hi), _ptr(live), _ptr(meta_ks), _ptr(verdict), b, s,
-            p_ext, page, pps, meta_max, r, k)
+            p_ext, page, pps, meta_max, r, k, depth)
     return meta, pool, verdict, out

@@ -154,8 +154,18 @@ def fused_round_case(rng: np.random.Generator, b: int = 2, page: int = 8,
     caller invariant ``S = meta_max + pps*page >= meta_len + pps*page``.
     Returned as a dict keyed by :func:`repro_torch.kernels.ops.fused_round`
     argument names (drop keys to exercise the optional-operand matrix)."""
-    stream, ml, tl, pool, tables, ks = selcopy_crypto_case(
-        rng, b=b, page=page, pps=pps, meta_max=meta_max)
+    return fused_operands(rng, *selcopy_crypto_case(
+        rng, b=b, page=page, pps=pps, meta_max=meta_max), meta_max=meta_max,
+        r=r, k=k)
+
+
+def fused_operands(rng: np.random.Generator, stream, ml, tl, pool, tables,
+                   ks, *, meta_max: int, r: int, k: int) -> dict:
+    """A selective-copy crypto case completed into a :func:`fused_round_case`
+    bundle: TX keystream, policy table, live column and metadata
+    keystream drawn from ``rng``."""
+    b, pps = tables.shape
+    page = pool.shape[1]
     mlv, tlv = np.array(ml), np.array(tl)
     plen = tlv - mlv
     tx = rng.integers(0, 1 << 31, (b, pps * page)).astype(np.int32)
@@ -175,6 +185,19 @@ def fused_round_case(rng: np.random.Generator, b: int = 2, page: int = 8,
                 cond_hi=np.asarray((lo + width).astype(np.int32)),
                 live=policy_live_column(rng, r),
                 meta_ks=np.asarray(mks.astype(np.int32)))
+
+
+def edge_fused_round_case(seed: int = 99, page: int = 8, pps: int = 3,
+                          meta_max: int = 8, r: int = 6, k: int = 3) -> dict:
+    """:func:`edge_rows_case` as a :func:`fused_round_case` bundle (policy
+    table, live column, both keystreams and the metadata keystream drawn
+    from ``seed + 1``): rows with ``meta_len`` 0, 5 and ``meta_max``, so
+    one payload window starts off a 16-byte boundary, and
+    ``S = meta_max + pps*page``, odd for an odd ``meta_max``."""
+    return fused_operands(np.random.default_rng(seed + 1),
+                          *edge_rows_case(seed, page=page, pps=pps,
+                                          meta_max=meta_max),
+                          meta_max=meta_max, r=r, k=k)
 
 
 def edge_rows_case(seed: int = 99, page: int = 8, pps: int = 3,
