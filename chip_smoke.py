@@ -15,7 +15,14 @@ order:
    depths ``n_buffers`` 0, 2, 3 and 4, also on edge rows (a payload window
    off its 16-byte boundary; S = 31, the 4-byte copy path), a 70 x 40
    policy table (read from global memory) and pages of two tiles;
-   ``selective_gather`` also at a page of 6 tokens and of two tiles.
+   ``selective_gather`` also at a page of 6 tokens and of two tiles;
+   ``selective_copy`` also on rows at the edges of its 16-byte groups
+   (``meta_len % 4`` and ``S % 4`` each 0 to 3, payloads ending at S or
+   cut by it, ``-1`` slots between valid ones) in the deployment's pool,
+   at a page of 6 tokens and of 2048; ``policy_match`` also at R x K = 32,
+   R = 33, K = 33, payload positions past W and past ``payload_len``, an
+   odd M, rows too wide to stage in shared memory, and every combination
+   of keystream, live column and payload window present or absent.
    Outputs must be bit-identical (``torch.equal``, the whole pool after the
    in-place anchor included) and the pool tensor must keep its storage.
 2. **e2e plaintext** -- a policy-routed ``ProxyRuntime(batched=True)`` of 64
@@ -71,7 +78,8 @@ order:
    datapath kernels also after a 64 MB read that leaves the L2 clean,
    ``fused_round`` at each ring depth, ``selective_gather`` beside a
    ``copy_`` of as many bytes as it writes; a kernel that returns at once,
-   the timing's floor, on a line of its own); the
+   the timing's floor, on a line of its own and beside the
+   ``selective_copy`` and ``policy_match`` rows); the
    bound is the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the card's peak for their type (int32 for the
    datapath, float32 FMA for paged attention; for flash attention and the
@@ -105,11 +113,15 @@ deployment's timing under both flushes, beside a kernel that returns at
 once (and, for the gather, ``index_select`` of its rows and a ``copy_`` of
 as many bytes as it writes; the fused round at ring depths 0, 2, 3, 4 and
 8; a ``fused_round.cu`` whose entry point has no depth argument runs every
-depth alike). A header next to a source is found before the one in
-``csrc/``, so an earlier commit's sources can bring their own. The modes
-compile with
-``-I src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
-shared header ``tf32_mma.cuh``, and print each build's ``ptxas -v`` and
+depth alike). ``--copy-ab`` and ``--policy-ab`` do the same for
+``csrc/selective_copy.cu`` and ``csrc/policy_match.cu``: the kernel's
+cases of phase 1 and the deployment's timing, plain and with the
+keystream, under both flushes, beside a kernel that returns at once (and
+for the copy a ``copy_`` of as many bytes as it writes). A header next
+to a source is found before the one in ``csrc/``, so an earlier commit's
+sources can bring their own. The modes compile with ``-I
+src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
+shared headers, and print each build's ``ptxas -v`` and
 SASS opcode mix of its run-shape instantiation.
 """
 from __future__ import annotations
@@ -320,13 +332,26 @@ def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
 
     big = dict(b=size.channels, page=size.page, pps=size.pps,
                meta_max=size.meta_max)
-    # -- selective_copy: deployment, small ragged, edge rows --------------
+    # -- selective_copy: deployment, small ragged, edge rows; rows at the
+    # edges of the kernel's 16-byte groups (meta_len % 4 in 0..3, S % 4 in
+    # 0..3, payloads ending at S or cut by it, -1 slots between valid
+    # ones) at the deployment's page in its pool, at a page of 6 tokens
+    # (the word path) and of 2048 (two groups a thread) ----------------
     cases = [] if "selective_copy" not in kernels else [
         ("deploy", widen(selcopy_dict(tt.selcopy_crypto_case(rng, **big)),
                          size.pool_rows, rng, np), size.meta_max),
         ("small", selcopy_dict(tt.selcopy_crypto_case(rng, **SMALL)),
          SMALL["meta_max"]),
-        ("edge", selcopy_dict(tt.edge_rows_case()), 8)]
+        ("edge", selcopy_dict(tt.edge_rows_case()), 8)] + [
+        (f"group-edges/S%4={tail}", widen(selcopy_dict(tt.selcopy_edge_case(
+            page=size.page, pps=size.pps, meta_max=size.meta_max,
+            s_tail=tail)), size.pool_rows, rng, np), size.meta_max)
+        for tail in range(4)] + [
+        (f"odd-page/S%4={tail}", selcopy_dict(tt.selcopy_edge_case(
+            page=6, pps=3, meta_max=8, s_tail=tail)), 8)
+        for tail in (0, 1)] + [
+        ("two-group-page", selcopy_dict(tt.selcopy_edge_case(
+            page=2048, pps=2, meta_max=16)), 16)]
     for label, case, meta_max in cases:
         for crypto in (False, True):
             c = tt.to_torch(case, dev)
@@ -364,7 +389,11 @@ def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
                 pool, pool, torch)
             record("selective_gather",
                    f"{label}/{'ks' if crypto else 'plain'}", ok, orr)
-    # -- policy_match: the deployment table, a wide table, small ---------
+    # -- policy_match: the deployment table, a wide table, small; R x K =
+    # 32 (one round of the lanes), R = 33 (two chunks of rules, the match
+    # in the second), K = 33, payload positions past W and past
+    # payload_len, an odd M (4-byte copies), and rows too wide to stage
+    # in shared memory (the payload window, then the metadata) ----------
     pcases = [] if "policy_match" not in kernels else [
         ("deploy", tt.policy_payload_case(
             rng, b=size.channels, meta_max=size.meta_max, r=3, k=1,
@@ -372,9 +401,29 @@ def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
         ("wide", tt.policy_payload_case(rng, b=9, meta_max=40, r=70, k=40,
                                         w=16), 70),
         ("small", tt.policy_payload_case(rng, b=6, meta_max=12, r=7, k=3,
-                                         w=8), 7)]
+                                         w=8), 7),
+        ("one-round", tt.policy_payload_case(rng, b=8, meta_max=16, r=8,
+                                             k=4, w=8), 8),
+        ("r33-k33", tt.policy_edge_case(rng, b=12, meta_max=24, r=33, k=33,
+                                        w=16), 33),
+        ("r33-last", tt.policy_edge_case(rng, b=12, meta_max=24, r=33, k=1,
+                                         w=16, fail_first=32), 33),
+        ("k33", tt.policy_edge_case(rng, b=12, meta_max=24, r=4, k=33,
+                                    w=16), 4),
+        ("payload-edges", tt.policy_edge_case(rng, b=10, meta_max=12, r=6,
+                                              k=2, w=8), 6),
+        ("odd-m", tt.policy_payload_case(rng, b=7, meta_max=13, r=7, k=3,
+                                         w=9), 7),
+        ("unstaged-window", tt.policy_payload_case(
+            rng, b=9, meta_max=64, r=5, k=3, w=16384), 5),
+        ("unstaged-meta", tt.policy_payload_case(rng, b=5, meta_max=3101,
+                                                 r=5, k=3, w=8), 5)]
+    # each of keystream, live and payload absent and present
     variants = {"plain": (), "ks": ("ks",), "live": ("live",),
-                "payload": ("payload",), "all": ("ks", "live", "payload")}
+                "payload": ("payload",), "ks+live": ("ks", "live"),
+                "ks+payload": ("ks", "payload"),
+                "live+payload": ("live", "payload"),
+                "all": ("ks", "live", "payload")}
     for label, case, r in pcases:
         meta, ml, off, lo, hi, ks, pw, pln = case
         ml = ml.copy()
@@ -1413,6 +1462,46 @@ def flash_timing_case(ss: ServeSize, cfg, gen, dev, torch):
         nbytes
 
 
+def copy_timing_case(size: Size, rng, dev, np, tt):
+    """The deployment's RX selective copy (64 rows, 256 metadata tokens,
+    16 pages of 1024 tokens, meta_len drawn from [0, 256], anchored into
+    the 128 MiB pool), the tokens it writes, and the bytes and operations
+    of each variant: the payload lanes of the stream (and keystream) and
+    the metadata prefixes read, the table and lengths read, the pool
+    tokens and the [B, meta_max] block written."""
+    case = widen(selcopy_dict(tt.selcopy_crypto_case(
+        rng, b=size.channels, page=size.page, pps=size.pps,
+        meta_max=size.meta_max)), size.pool_rows, rng, np)
+    c = tt.to_torch(case, dev)
+    ml, tl, tb = case["meta_len"], case["total_len"], case["tables"]
+    b, s = case["stream"].shape
+    n_pay = anchored_tokens(ml, tl, tb, size.page, s, np)
+    n_meta = int(np.minimum(ml, size.meta_max).sum())
+    writes = n_pay + b * size.meta_max
+
+    def cost(crypto):
+        reads = n_pay * (2 if crypto else 1) + n_meta + tb.size + 2 * b
+        return 4 * (reads + writes), n_pay * (1 + crypto)
+    return c, writes, cost
+
+
+def policy_timing_case(size: Size, rng, dev, np, tt):
+    """The deployment's policy match (64 messages, 256 metadata tokens,
+    the three-rule table, a payload window of one page), and the bytes
+    and operations of each variant: the tokens the conditions read (twice
+    with the keystream), the table, the lengths, the verdicts."""
+    meta, pml, off, lo, hi, pks, pw, pln = tt.policy_payload_case(
+        rng, b=size.channels, meta_max=size.meta_max, r=3, k=1, w=size.page)
+    p = tt.to_torch(dict(meta=meta, ml=pml, off=off, lo=lo, hi=hi, ks=pks,
+                         pw=pw, pln=pln), dev)
+    refs = policy_refs(off, pml, size.meta_max, pln, size.page, np)
+
+    def cost(crypto):
+        reads = refs * (2 if crypto else 1) + 3 * off.size + 2 * len(pml)
+        return 4 * (reads + len(pml)), 3 * refs
+    return p, cost
+
+
 def gather_timing_case(size: Size, rng, dev, np, tt):
     """The deployment's egress gather (64 rows x 16 pages of 1024 tokens
     out of the 128 MiB pool), the index of its table rows for
@@ -1466,10 +1555,17 @@ def fused_timing_case(size: Size, rng, dev, np, tt):
     return f, variants
 
 
-def empty_kernel_ms(torch) -> float:
-    """This timing's floor: ``time_ms`` of a kernel that returns at once
-    (``torch.cuda._sleep(0)``, one block of one thread)."""
-    return time_ms(lambda: torch.cuda._sleep(0), torch)
+def both_flushes(fn, torch) -> dict:
+    """``time_ms`` of ``fn`` under the write flush and with a clean L2."""
+    return {"dirty_l2": time_ms(fn, torch),
+            "clean_l2": time_ms(fn, torch, clean_l2=True)}
+
+
+def empty_kernel_ms(torch) -> dict:
+    """This timing's floor under both flushes: ``time_ms`` of a kernel
+    that returns at once (``torch.cuda._sleep(0)``, one block of one
+    thread)."""
+    return both_flushes(lambda: torch.cuda._sleep(0), torch)
 
 
 def card_line(torch) -> str:
@@ -1485,9 +1581,7 @@ def card_line(torch) -> str:
 def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
            tt):
     rng = np.random.default_rng(29)
-    big = dict(b=size.channels, page=size.page, pps=size.pps,
-               meta_max=size.meta_max)
-    page, mm = size.page, size.meta_max
+    mm = size.meta_max
     rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
     frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
     out = {}
@@ -1508,39 +1602,31 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
         return row
 
     floor = empty_kernel_ms(torch)
-    emit({"phase": "timing_floor", "empty_kernel_ms": floor,
-          "what": "time_ms of torch.cuda._sleep(0), under the write flush"})
-    # selective_copy
-    case = widen(selcopy_dict(tt.selcopy_crypto_case(rng, **big)),
-                 size.pool_rows, rng, np)
-    c = tt.to_torch(case, dev)
-    ml, tl, tb = case["meta_len"], case["total_len"], case["tables"]
-    b, s = case["stream"].shape
-    n_pay = anchored_tokens(ml, tl, tb, page, s, np)
-    n_meta = int(np.minimum(ml, mm).sum())
-    idx = tb.size + 2 * b
+    emit({"phase": "timing_floor", "empty_kernel_ms": floor["dirty_l2"],
+          "empty_kernel_ms_clean_l2": floor["clean_l2"],
+          "what": "time_ms of torch.cuda._sleep(0), under the write flush "
+                  "and after a clean-L2 read"})
+    # selective_copy, beside the floor
+    c, _writes, c_cost = copy_timing_case(size, rng, dev, np, tt)
     for crypto in (False, True):
         ks = c["keystream"] if crypto else None
-        reads = n_pay * (2 if crypto else 1) + n_meta + idx
-        writes = n_pay + b * mm
-        entry("selective_copy", "ks" if crypto else "plain",
-              lambda: ops.selective_copy(c["stream"], c["meta_len"],
-                                         c["total_len"], c["pool"],
-                                         c["tables"], meta_max=mm,
-                                         impl="cuda", keystream=ks),
-              lambda: ops.selective_copy(c["stream"], c["meta_len"],
-                                         c["total_len"], c["pool"],
-                                         c["tables"], meta_max=mm,
-                                         impl="ref", keystream=ks),
-              (4 * (reads + writes), n_pay * (1 + crypto)))
+        row = entry("selective_copy", "ks" if crypto else "plain",
+                    lambda: ops.selective_copy(c["stream"], c["meta_len"],
+                                               c["total_len"], c["pool"],
+                                               c["tables"], meta_max=mm,
+                                               impl="cuda", keystream=ks),
+                    lambda: ops.selective_copy(c["stream"], c["meta_len"],
+                                               c["total_len"], c["pool"],
+                                               c["tables"], meta_max=mm,
+                                               impl="ref", keystream=ks),
+                    c_cost(crypto), clean=True)
+        row.update(empty_kernel_ms=floor)
     # selective_gather, beside index_select of its rows and a copy_ of as
     # many bytes as it writes
     g, rows_idx, n_g, g_bytes = gather_timing_case(size, rng, dev, np, tt)
     src = torch.empty_like(g["ks"])
     dst = torch.empty_like(src)
-    copy_ms = {"dirty_l2": time_ms(lambda: dst.copy_(src), torch),
-               "clean_l2": time_ms(lambda: dst.copy_(src), torch,
-                                   clean_l2=True)}
+    copy_ms = both_flushes(lambda: dst.copy_(src), torch)
     for crypto in (False, True):
         ks = g["ks"] if crypto else None
         row = entry("selective_gather", "ks" if crypto else "plain",
@@ -1556,23 +1642,22 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
                     clean=True)
         row.update(same_bytes_copy_ms=copy_ms)
     del src, dst
-    # policy_match: the deployment's three rules, payload window on
-    meta, pml, off, lo, hi, pks, pw, pln = tt.policy_payload_case(
-        rng, b=size.channels, meta_max=mm, r=3, k=1, w=page)
-    p = tt.to_torch(dict(meta=meta, ml=pml, off=off, lo=lo, hi=hi, ks=pks,
-                         pw=pw, pln=pln), dev)
-    refs = policy_refs(off, pml, mm, pln, page, np)
+    # policy_match: the deployment's three rules, payload window on,
+    # beside the floor
+    p, p_cost = policy_timing_case(size, rng, dev, np, tt)
     for crypto in (False, True):
         ks = p["ks"] if crypto else None
-        reads = refs * (2 if crypto else 1) + 3 * off.size + 2 * len(pml)
-        entry("policy_match", "ks" if crypto else "plain",
-              lambda: ops.policy_match(p["meta"], p["ml"], p["off"], p["lo"],
-                                       p["hi"], impl="cuda", keystream=ks,
-                                       payload=p["pw"], payload_len=p["pln"]),
-              lambda: ops.policy_match(p["meta"], p["ml"], p["off"], p["lo"],
-                                       p["hi"], impl="ref", keystream=ks,
-                                       payload=p["pw"], payload_len=p["pln"]),
-              (4 * (reads + len(pml)), 3 * refs))
+        row = entry("policy_match", "ks" if crypto else "plain",
+                    lambda: ops.policy_match(
+                        p["meta"], p["ml"], p["off"], p["lo"], p["hi"],
+                        impl="cuda", keystream=ks, payload=p["pw"],
+                        payload_len=p["pln"]),
+                    lambda: ops.policy_match(
+                        p["meta"], p["ml"], p["off"], p["lo"], p["hi"],
+                        impl="ref", keystream=ks, payload=p["pw"],
+                        payload_len=p["pln"]),
+                    p_cost(crypto), clean=True)
+        row.update(empty_kernel_ms=floor)
     # fused_round: plaintext with policy, then both keystreams + policy,
     # at each ring depth (the first row, n_buffers = 0, is the main path's)
     f, fvars = fused_timing_case(size, rng, dev, np, tt)
@@ -1850,9 +1935,7 @@ def paged_ab(paths, dev, torch, ops, _build) -> int:
         "paged_ab", label, libs, _build,
         lambda: ops.paged_attention(*pc, impl="cuda"), torch, passed,
         nbytes, flops, peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK),
-        same_bytes_sum_ms={"dirty_l2": time_ms(flat.sum, torch),
-                           "clean_l2": time_ms(flat.sum, torch,
-                                               clean_l2=True)})
+        same_bytes_sum_ms=both_flushes(flat.sum, torch))
 
 
 def ab_bytes_report(phase, label, libs, _build, fn, torch, passed, nbytes,
@@ -1890,14 +1973,12 @@ def gather_ab(paths, dev, torch, np, ops, tt, _build) -> int:
         size, np.random.default_rng(29), dev, np, tt)
     src = torch.empty_like(g["ks"])
     dst = torch.empty_like(src)
-
-    def both(fn):
-        return {"dirty_l2": time_ms(fn, torch),
-                "clean_l2": time_ms(fn, torch, clean_l2=True)}
-    yard = dict(library_ms=both(lambda: torch.index_select(g["pool"], 0,
-                                                           rows_idx)),
-                same_bytes_copy_ms=both(lambda: dst.copy_(src)),
-                empty_kernel_ms=both(lambda: torch.cuda._sleep(0)))
+    yard = dict(library_ms=both_flushes(
+                    lambda: torch.index_select(g["pool"], 0, rows_idx),
+                    torch),
+                same_bytes_copy_ms=both_flushes(lambda: dst.copy_(src),
+                                                torch),
+                empty_kernel_ms=empty_kernel_ms(torch))
     rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
     rc = 0
     for crypto in (False, True):
@@ -1932,9 +2013,7 @@ def fused_ab(paths, dev, torch, np, ops, tt, _build) -> int:
             size.meta_max, (f["total_len"] - f["meta_len"]).cpu().numpy(),
             size.page, np) + size.channels), 0)
     rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
-    floor = {"dirty_l2": time_ms(lambda: torch.cuda._sleep(0), torch),
-             "clean_l2": time_ms(lambda: torch.cuda._sleep(0), torch,
-                                 clean_l2=True)}
+    floor = empty_kernel_ms(torch)
     rc = 0
     for vname, (kw, nbytes, nops) in fvars.items():
         for depth in FUSED_DEPTHS + (8,):
@@ -1945,6 +2024,62 @@ def fused_ab(paths, dev, torch, np, ops, tt, _build) -> int:
                                         f["tables"], meta_max=size.meta_max,
                                         impl="cuda", n_buffers=depth, **kw),
                 torch, passed, nbytes, nops, rate, empty_kernel_ms=floor)
+    return rc
+
+
+def copy_ab(paths, dev, torch, np, ops, tt, _build) -> int:
+    """Phase 1's selective_copy cases and the deployment's RX copy timing
+    (plain and with the keystream) through each build of the selective
+    copy kernel, beside a ``copy_`` of as many bytes as it writes and a
+    kernel that returns at once."""
+    libs = build_variants(paths, _build, "libra_selective_copy",
+                          r"selective_copy_kernel(?:ILi1EEEv|E)PKi")
+    size = Size()
+    passed = ab_parity(libs, _build, lambda: parity(
+        size, dev, torch, np, ops, tt, kernels=("selective_copy",)))
+    c, writes, cost = copy_timing_case(size, np.random.default_rng(29), dev,
+                                       np, tt)
+    src = torch.zeros(writes, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    yard = dict(same_bytes_copy_ms=both_flushes(lambda: dst.copy_(src),
+                                                torch),
+                empty_kernel_ms=empty_kernel_ms(torch))
+    rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
+    rc = 0
+    for crypto in (False, True):
+        ks = c["keystream"] if crypto else None
+        rc |= ab_bytes_report(
+            "copy_ab", "ks" if crypto else "plain", libs, _build,
+            lambda: ops.selective_copy(c["stream"], c["meta_len"],
+                                       c["total_len"], c["pool"],
+                                       c["tables"], meta_max=size.meta_max,
+                                       impl="cuda", keystream=ks),
+            torch, passed, *cost(crypto), rate, **yard)
+    return rc
+
+
+def policy_ab(paths, dev, torch, np, ops, tt, _build) -> int:
+    """Phase 1's policy_match cases and the deployment's policy timing
+    (payload window on, plain and with the keystream) through each build
+    of the policy match kernel, beside a kernel that returns at once."""
+    libs = build_variants(paths, _build, "libra_policy_match",
+                          "policy_match_kernel")
+    size = Size()
+    passed = ab_parity(libs, _build, lambda: parity(
+        size, dev, torch, np, ops, tt, kernels=("policy_match",)))
+    p, cost = policy_timing_case(size, np.random.default_rng(29), dev, np,
+                                 tt)
+    floor = empty_kernel_ms(torch)
+    rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
+    rc = 0
+    for crypto in (False, True):
+        ks = p["ks"] if crypto else None
+        rc |= ab_bytes_report(
+            "policy_ab", "ks" if crypto else "plain", libs, _build,
+            lambda: ops.policy_match(p["meta"], p["ml"], p["off"], p["lo"],
+                                     p["hi"], impl="cuda", keystream=ks,
+                                     payload=p["pw"], payload_len=p["pln"]),
+            torch, passed, *cost(crypto), rate, empty_kernel_ms=floor)
     return rc
 
 
@@ -1990,6 +2125,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--fused-ab"]:
         check(sys.argv[2:], "--fused-ab takes fused_round.cu sources")
         return fused_ab(sys.argv[2:], dev, torch, np, ops, tt, _build)
+    if sys.argv[1:2] == ["--copy-ab"]:
+        check(sys.argv[2:], "--copy-ab takes selective_copy.cu sources")
+        return copy_ab(sys.argv[2:], dev, torch, np, ops, tt, _build)
+    if sys.argv[1:2] == ["--policy-ab"]:
+        check(sys.argv[2:], "--policy-ab takes policy_match.cu sources")
+        return policy_ab(sys.argv[2:], dev, torch, np, ops, tt, _build)
     size = Size()
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)

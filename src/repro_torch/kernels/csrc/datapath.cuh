@@ -31,14 +31,15 @@ inline int page_threads(int page) {
 }
 
 // Compact row b's metadata prefix: meta[b, i] = stream[b, min(i, S - 1)]
-// for i < meta_len[b], else 0. Run by every thread of one block.
+// for i < meta_len[b], else 0. Run by every thread of one block. The row
+// is loaded whatever mlen is, so the loads need not wait for it.
 __device__ __forceinline__ void meta_row(const int* __restrict__ stream,
                                          int mlen, int* __restrict__ meta,
                                          int b, int s, int meta_max) {
   const int64_t row = (int64_t)b * s;
   for (int i = threadIdx.x; i < meta_max; i += blockDim.x) {
-    const int src = i < s ? i : s - 1;
-    meta[(int64_t)b * meta_max + i] = i < mlen ? stream[row + src] : 0;
+    const int v = __ldg(stream + row + (i < s ? i : s - 1));
+    meta[(int64_t)b * meta_max + i] = i < mlen ? v : 0;
   }
 }
 

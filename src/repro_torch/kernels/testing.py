@@ -219,3 +219,75 @@ def edge_rows_case(seed: int = 99, page: int = 8, pps: int = 3,
     pool = rng.integers(0, 5, (2 * pps + 1, page)).astype(np.int32)
     ks = rng.integers(0, 1 << 31, (3, s)).astype(np.int32)
     return stream, meta_len, total_len, pool, tables, ks
+
+
+def selcopy_edge_case(seed: int = 7, page: int = 1024, pps: int = 16,
+                      meta_max: int = 256, s_tail: int = 0) -> Tuple:
+    """A selective-copy case of eight rows at the edges of the CUDA
+    kernel's 16-byte groups, with ``S = meta_max + pps*page - 4 + s_tail``
+    (so ``S % 4 == s_tail % 4``): ``meta_len`` 0, 1, 2 and 3 (the payload
+    at every phase against a 16-byte boundary) over most of the table, row
+    3 with ``-1`` slots between its valid ones; ``meta_len == meta_max -
+    1`` with a payload that ends exactly at S; ``meta_len == meta_max``
+    with one cut by S (``total_len`` past S); an empty row (all ``-1``);
+    and ``meta_len == meta_max`` with a payload of 5 tokens. Payloads stay
+    within ``pps*page``. The keystream is random on every lane. Returns
+    (stream, meta_len, total_len, pool_with_scratch, tables, keystream)."""
+    rng = np.random.default_rng(seed)
+    full = pps * page
+    s = meta_max + full - 4 + s_tail
+    meta_len = np.array([0, 1, 2, 3, meta_max - 1, meta_max, 0, meta_max],
+                        np.int32)
+    total_len = np.array([full - 4, full, 2 + full // 2 + 3, 3 + full - 2,
+                          s, s + 9, 0, meta_max + 5], np.int32)
+    b = len(meta_len)
+    tables = np.full((b, pps), -1, np.int32)
+    ctr = 0
+    for i in range(b):
+        plen = min(int(total_len[i]), s) - int(meta_len[i])
+        for j in range(-(-plen // page)):
+            if i == 3 and j % 2 == 1:
+                continue                     # -1 between valid slots
+            tables[i, j] = ctr
+            ctr += 1
+    perm = rng.permutation(ctr + 2)[:ctr].astype(np.int32)
+    tables = np.where(tables >= 0, perm[np.maximum(tables, 0)], -1)
+    stream = rng.integers(1, 1000, (b, s)).astype(np.int32)
+    pool = rng.integers(0, 5, (ctr + 3, page)).astype(np.int32)
+    ks = rng.integers(0, 1 << 31, (b, s)).astype(np.int32)
+    return (stream, meta_len, total_len, pool, tables.astype(np.int32), ks)
+
+
+def policy_edge_case(rng: np.random.Generator, b: int = 8,
+                     meta_max: int = 16, r: int = 33, k: int = 33,
+                     w: int = 8, fail_first: int = 0) -> Tuple:
+    """A policy case whose conditions mostly hold, so that rules of many
+    conditions still match now and then: a third padding, a third
+    metadata conditions (offsets mostly below 4, some up to ``meta_max +
+    1``), a third payload conditions (positions mostly below 2, some at
+    ``W - 1``, ``W`` and ``W + 1``, past the window); most bands are the
+    whole value range, a few narrow. Row 0 has ``meta_len`` 0 and
+    ``payload_len`` 0, row 1 ``meta_len == meta_max`` and ``payload_len ==
+    W``. Returns :func:`policy_payload_case`'s tuple."""
+    meta = rng.integers(0, 200, (b, meta_max)).astype(np.int32)
+    ml = rng.integers(0, meta_max + 1, b).astype(np.int32)
+    pl = rng.integers(0, w + 1, b).astype(np.int32)
+    ml[0], pl[0] = 0, 0
+    ml[1], pl[1] = meta_max, w
+    kind = rng.integers(0, 3, (r, k))
+    moff = np.where(rng.random((r, k)) < 0.9, rng.integers(0, 4, (r, k)),
+                    rng.integers(0, meta_max + 2, (r, k)))
+    ppos = np.where(rng.random((r, k)) < 0.9, rng.integers(0, 2, (r, k)),
+                    rng.choice([w - 1, w, w + 1], (r, k)))
+    off = np.where(kind == 0, -1, np.where(kind == 1, moff, -2 - ppos))
+    narrow = rng.random((r, k)) < 0.05
+    lo = np.where(narrow, rng.integers(0, 200, (r, k)), 0).astype(np.int32)
+    hi = np.where(narrow, lo + rng.integers(0, 60, (r, k)), 199)
+    slot = rng.integers(0, k, fail_first) if k else []
+    for rule, c in enumerate(slot):
+        off[rule, c], lo[rule, c], hi[rule, c] = 0, 1, 0
+    ks = rng.integers(0, 1 << 31, (b, meta_max)).astype(np.int32)
+    ks = np.where(np.arange(meta_max)[None, :] < ml[:, None], ks, 0)
+    payload = rng.integers(0, 200, (b, w)).astype(np.int32)
+    return (meta, ml, off.astype(np.int32), lo, hi.astype(np.int32),
+            ks.astype(np.int32), payload, pl)
