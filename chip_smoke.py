@@ -85,6 +85,32 @@ order:
    datapath, float32 FMA for paged attention; for flash attention and the
    mLSTM scan three TF32 tensor-core products per float32 product, with
    the float32-FMA bound beside it as ``fp32_fma_bound_ms``).
+10. **cluster** (run right after phase 4) -- phase 2's deployment as a
+   ``LibraCluster`` of four workers, each with its own 128 MiB resident
+   pool (512 MiB on the card) and a clone of the policy table, under
+   ``ClusterRuntime(work_stealing=False)``. Channel i's source is on
+   worker i % 4; both destinations are on the next worker for the first
+   16 channels (25 % of the flows cross workers, each handoff a zero-copy
+   grant gathered out of the owner's pool) and on its own worker
+   otherwise. Plaintext as ``fused-round``, ``auto`` and ``host`` under
+   ``run()`` and as ``fused-round`` and ``host`` under
+   ``run_parallel(threads=True)``; hw-kTLS as ``fused-round`` and
+   ``host`` under ``run()``. Within a TLS mode wire bytes, aggregate
+   ``CopyCounters``, policy verdicts and cluster stats must be identical;
+   wire bytes and counters must equal a single ``LibraStack`` run of the
+   same traffic; grants must happen; every worker of a device run must
+   run device rounds with no pool sync, no host gather and no device
+   fallback, and launch the kernels of its path (and no others); and
+   shutdown must find every pool free with no grant pin left. Then three
+   directed cases: (a) every flow crossing to a worker above its
+   watermark (each handoff a one-copy read of the owner's device-truth
+   rows), ``fused-round`` against ``host``; (b) a message taken in by a
+   ``fused-round`` round, granted, and its owner killed: the grant is
+   copied out of the dying pool and transmits byte for byte; (c) the
+   chaos scenario of ``scripts/check_failover_recovery_torch.py`` as
+   ``fused-round`` rounds, under ``run()`` and under threads. Prints each
+   run's seconds, rounds/s and msgs/s, the threads' per-worker seconds,
+   the grant, copy and kill stats and the launches per kernel.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -127,6 +153,8 @@ SASS opcode mix of its run-shape instantiation.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -181,6 +209,15 @@ DATAPATH = ("selective_copy", "selective_gather", "policy_match",
             "fused_round")
 # fused_round's ring depths held and timed: 0 is the wrapper's default
 FUSED_DEPTHS = (0, 2, 3, 4)
+# kernels each datapath run must launch, and kernels it must not: a fused
+# round anchors and matches in its one launch, but sends its speculation
+# missed (policy reroutes, drops, cross-worker grants) still gather in
+# their own launch
+LAUNCH_EXPECT = {"fused-round": (("fused_round",),
+                                 ("selective_copy", "policy_match")),
+                 "auto": (("selective_copy", "policy_match",
+                           "selective_gather"), ("fused_round",)),
+                 "host": ((), DATAPATH)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -512,21 +549,39 @@ def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
 # phases 2-3: end to end
 # ---------------------------------------------------------------------------
 
-def build_run(size: Size, impl: str, tls, dev, np, core):
-    """The deployment's stack, policy table and loaded runtime."""
+def policy_table(tls, core):
+    """The deployment's three rules: a metadata drop, a payload-prefix
+    forward and a metadata forward."""
     from repro_torch.core.crypto import REC_HEADER
     from repro_torch.core.policy import payload_at
 
-    stack = core.LibraStack(n_shards=size.n_shards,
-                            pages_per_shard=size.pages_per_shard,
-                            page_size=size.page, secret=b"chip-smoke",
-                            device=dev)
     off = (REC_HEADER if tls else 0) + 3
-    table = core.PolicyTable([
+    return core.PolicyTable([
         core.rule(core.drop(), core.between(off, 196, 199)),
         core.rule(core.forward(1), payload_at(0, 1950, 2000)),
         core.rule(core.forward(0), core.between(off, 100, 199)),
     ])
+
+
+def load_channel(size: Size, tls, src, rng, np, core) -> None:
+    """Deliver one channel's ``size.msgs`` messages into ``src``."""
+    frames = [core.build_message(
+        rng.integers(100, 200, size.meta_app(tls)),
+        rng.integers(1000, 2000,
+                     int(rng.integers(size.payload_lo,
+                                      size.payload_hi + 1))))
+        for _ in range(size.msgs)]
+    src.deliver(src.tls.seal_frames(frames, src.parser.inner) if tls
+                else np.concatenate(frames))
+
+
+def build_run(size: Size, impl: str, tls, dev, np, core):
+    """The deployment's stack, policy table and loaded runtime."""
+    stack = core.LibraStack(n_shards=size.n_shards,
+                            pages_per_shard=size.pages_per_shard,
+                            page_size=size.page, secret=b"chip-smoke",
+                            device=dev)
+    table = policy_table(tls, core)
     # batch_tile=0: each round is ONE recv/forward pass over every ready
     # channel (B = 64); the adaptive tile would split such page-heavy
     # rounds into tiles of a few messages
@@ -537,15 +592,39 @@ def build_run(size: Size, impl: str, tls, dev, np, core):
         src = stack.socket("length-prefixed", tls=tls)
         dsts = [stack.socket("length-prefixed", tls=tls) for _ in range(2)]
         rt.channel(src, dsts, name=f"ch{i}")
-        frames = [core.build_message(
-            rng.integers(100, 200, size.meta_app(tls)),
-            rng.integers(1000, 2000,
-                         int(rng.integers(size.payload_lo,
-                                          size.payload_hi + 1))))
-            for _ in range(size.msgs)]
-        src.deliver(src.tls.seal_frames(frames, src.parser.inner) if tls
-                    else np.concatenate(frames))
+        load_channel(size, tls, src, rng, np, core)
     return stack, rt, table
+
+
+def same_wires(a, b, np) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def check_device_plane(tag: str, impl: str, xfers, counters, launches,
+                       workers) -> None:
+    """No fallback hides the card: no worker in ``workers`` synced its
+    pool or gathered a batched round on the host; on a device path each
+    ran device rounds and none fell back to the host; and the expected
+    kernels (and no others) launched."""
+    if impl != "host":
+        check(counters["device_fallbacks"] == 0,
+              f"{tag}: rounds fell back to the host")
+    for i in workers:
+        x = xfers[i]
+        if impl != "host":
+            check(x["device_rounds"] > 0, f"{tag}: worker {i} ran no "
+                  "device round")
+        check(x["pool_syncs"] == 0, f"{tag}: worker {i} synced its pool")
+        check(x.get("host_gathers", 0) == 0,
+              f"{tag}: worker {i} gathered {x.get('host_gathers')} "
+              "batched rounds on the host")
+    must, must_not = LAUNCH_EXPECT[impl]
+    for k in must:
+        check(launches[k] > 0, f"{tag}: kernel {k} was never launched")
+    for k in must_not:
+        check(launches[k] == 0, f"{tag}: kernel {k} launched "
+              f"{launches[k]} times")
 
 
 def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern):
@@ -579,14 +658,6 @@ def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern):
 
 
 def e2e(size: Size, tls, dev, torch, np, core, kern):
-    # kernels each run must launch, and kernels it must not: a fused round
-    # anchors and matches in its one launch, but sends its speculation
-    # missed (policy reroutes, drops) still gather in their own launch
-    expect = {"fused-round": (("fused_round",),
-                              ("selective_copy", "policy_match")),
-              "auto": (("selective_copy", "policy_match", "selective_gather"),
-                       ("fused_round",)),
-              "host": ((), DATAPATH)}
     # device paths run twice, in turns (fused, auto, host, auto, fused), so
     # process warm-up and drift do not land on one path
     runs, wires = [], []
@@ -600,7 +671,7 @@ def e2e(size: Size, tls, dev, torch, np, core, kern):
     for r, w in zip(runs, wires):
         impl = r["impl"]
         tag = f"{tls or 'plaintext'}/{impl}"
-        check(all(np.array_equal(a, b) for a, b in zip(w, wires[base_i])),
+        check(same_wires(w, wires[base_i], np),
               f"{tag}: wire bytes differ from the host run")
         check(r["counters"] == base["counters"],
               f"{tag}: CopyCounters differ from the host run")
@@ -608,22 +679,10 @@ def e2e(size: Size, tls, dev, torch, np, core, kern):
               f"{tag}: policy verdicts differ from the host run")
         check(r["msgs"] == base["msgs"], f"{tag}: message count differs")
         x = r["xfer"]
-        check(x["pool_syncs"] == 0, f"{tag}: O(pool) sync happened")
-        check(x.get("host_gathers", 0) == 0,
-              f"{tag}: {x.get('host_gathers')} batched gathers ran on the "
-              "host while the pool was resident")
         check(x["donated_rounds"] == x["device_rounds"],
               f"{tag}: donated_rounds != device_rounds")
-        must, must_not = expect[impl]
-        for k in must:
-            check(r["launches"][k] > 0, f"{tag}: kernel {k} was never launched")
-        for k in must_not:
-            check(r["launches"][k] == 0,
-                  f"{tag}: kernel {k} launched {r['launches'][k]} times")
-        if impl != "host":
-            check(x["device_rounds"] > 0, f"{tag}: no device round")
-            check(r["counters"]["device_fallbacks"] == 0,
-                  f"{tag}: rounds fell back to the host")
+        check_device_plane(tag, impl, [x], r["counters"], r["launches"],
+                           (0,))
     summary = {}
     for r in runs:
         row = summary.setdefault(r["impl"], {"rounds": r["rounds"],
@@ -670,6 +729,282 @@ def trace(size: Size, dev, torch, np, core):
                      "top_device_us": {k[:60]: v for k, v in top}}
     emit({"phase": "trace", "runs": out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the four-worker cluster
+# ---------------------------------------------------------------------------
+
+CLUSTER_WORKERS = 4
+#: channels whose two destinations sit on the next worker: 25 % of 64
+CROSS_CHANNELS = 16
+
+
+def build_cluster(size: Size, impl: str, tls, dev, np, core,
+                  fallback: bool = False):
+    """The deployment as ``CLUSTER_WORKERS`` workers, each with its own
+    128 MiB resident pool and a clone of the policy table. Channel i's
+    source is on worker i % 4; its two destinations are on the next worker
+    for the first ``CROSS_CHANNELS`` channels and on its own otherwise.
+    ``fallback``: sources on workers 0 and 1, destinations on 2 and 3,
+    whose pools sit above their watermark (every grant becomes a copy)."""
+    w = CLUSTER_WORKERS
+    cl = core.LibraCluster(w, n_shards=size.n_shards,
+                           pages_per_shard=size.pages_per_shard,
+                           page_size=size.page, secret=b"chip-smoke",
+                           device=dev)
+    if fallback:
+        for dw in (2, 3):
+            cl.workers[dw].high_watermark = 0.0
+    crt = core.ClusterRuntime(cl, work_stealing=False,
+                              policy=policy_table(tls, core), batched=True,
+                              batch_impl=impl, batch_tile=0, tick_every=32)
+    rng = np.random.default_rng(2026)
+    dsts = []
+    for i in range(size.channels):
+        if fallback:
+            sw, dw = i % 2, 2 + i % 2
+        else:
+            sw = i % w
+            dw = (sw + 1) % w if i < CROSS_CHANNELS else sw
+        src = cl.socket("length-prefixed", worker=sw, tls=tls)
+        pair = [cl.socket("length-prefixed", worker=dw, tls=tls)
+                for _ in range(2)]
+        crt.channel(src, pair, name=f"ch{i}")
+        dsts += pair
+        load_channel(size, tls, src, rng, np, core)
+    return cl, crt, dsts
+
+
+def cluster_run(size: Size, impl: str, tls, executor: str, dev, torch, np,
+                core, kern, fallback: bool = False):
+    cl, crt, dsts = build_cluster(size, impl, tls, dev, np, core, fallback)
+    # the one-time residency uploads (4 x 128 MiB) are set-up, timed apart
+    t0 = time.perf_counter()
+    if impl != "host":
+        for w in cl.workers:
+            w.pool._ensure_device()
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    worker_s = None
+    if executor == "threads":
+        _msgs, worker_s = crt.run_parallel(threads=True)
+    else:
+        crt.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    wires = [d.tls.open_wire(d.tx_wire()) if tls else d.tx_wire()
+             for d in dsts]
+    agg = cl.counters_aggregate()
+    worker_rounds = [rt.rounds for rt in crt.runtimes]
+    rounds = crt.rounds if executor == "run" else max(worker_rounds)
+    msgs = crt.messages_forwarded()
+    out = dict(impl=impl, executor=executor, rounds=rounds,
+               worker_rounds=worker_rounds, seconds=dt,
+               resident_init_seconds=resident_s,
+               rounds_per_s=rounds / dt, msgs=msgs, msgs_per_s=msgs / dt,
+               worker_seconds=worker_s, launches=launches,
+               xfer=[dict(w.pool.xfer) for w in cl.workers],
+               counters=dataclasses.asdict(agg), snapshot=agg.snapshot(),
+               verdicts=crt.policy_summary()["aggregate"],
+               stats=dict(cl.stats))
+    tag = f"cluster/{tls or 'plaintext'}/{impl}/{executor}"
+    check_device_plane(tag, impl, out["xfer"], out["counters"], launches,
+                       (0, 1) if fallback else range(CLUSTER_WORKERS))
+    crt.shutdown()      # assert_no_leaks: every pool free, no grant pin
+    return out, wires
+
+
+def cluster_identity(size: Size, tls, runs, dev, torch, np, core, kern):
+    """The ``runs`` ((impl, executor) pairs) of one TLS mode: identical
+    wire bytes, counters and verdicts across them, and wire bytes and
+    counters equal to a single-stack run of the same traffic."""
+    single, single_wires = e2e_run(size, "host", tls, dev, torch, np, core,
+                                   kern)
+    single_snap = core.CopyCounters(**single["counters"]).snapshot()
+    out, base_w = [], None
+    for impl, executor in runs:
+        r, w = cluster_run(size, impl, tls, executor, dev, torch, np, core,
+                           kern)
+        gc.collect()
+        tag = f"cluster/{tls or 'plaintext'}/{impl}/{executor}"
+        if out:
+            base = out[0]
+            check(same_wires(w, base_w, np), f"{tag}: wire bytes differ "
+                  f"from {base['impl']}/{base['executor']}")
+            for k in ("counters", "verdicts", "msgs", "stats"):
+                check(r[k] == base[k], f"{tag}: {k} differ from "
+                      f"{base['impl']}/{base['executor']}")
+        else:
+            base_w = w
+        check(r["msgs"] > 0, f"{tag}: nothing was forwarded")
+        check(r["stats"]["grants"] > 0, f"{tag}: no cross-worker grant")
+        check(r["stats"]["copies"] == 0, f"{tag}: a grant fell back to a "
+              "copy below the watermark")
+        check(same_wires(w, single_wires, np),
+              f"{tag}: wire bytes differ from the single-stack run")
+        check(tuple(r["snapshot"]) == tuple(single_snap),
+              f"{tag}: counters differ from the single-stack run")
+        out.append(r)
+    return out
+
+
+def cluster_fallback(size: Size, dev, torch, np, core, kern):
+    """Directed case (a): every flow crosses to a worker above its
+    watermark, so each handoff is the one-copy fallback, which reads the
+    owner's device-truth rows back out of its pool."""
+    small = dataclasses.replace(size, channels=CROSS_CHANNELS)
+    res = {}
+    wires = {}
+    for impl in ("fused-round", "host"):
+        r, w = cluster_run(small, impl, None, "run", dev, torch, np, core,
+                           kern, fallback=True)
+        gc.collect()
+        tag = f"cluster/fallback/{impl}"
+        check(r["stats"]["copies"] > 0, f"{tag}: no one-copy fallback")
+        check(r["stats"]["grants"] == 0, f"{tag}: a zero-copy grant was made")
+        check(r["counters"]["cross_worker_copied"]
+              == r["stats"]["copied_tokens"] > 0,
+              f"{tag}: copied tokens not counted")
+        res[impl], wires[impl] = r, w
+    check(same_wires(wires["fused-round"], wires["host"], np),
+          "cluster/fallback: wire bytes differ from the host run")
+    for k in ("counters", "verdicts", "stats"):
+        check(res["fused-round"][k] == res["host"][k],
+              f"cluster/fallback: {k} differ from the host run")
+    return res
+
+
+def cluster_dead_owner(size: Size, dev, torch, np, core, kern):
+    """Directed case (b): worker 0 takes a message in by a ``fused-round``
+    round (its rows are then truth on the card), grants it to worker 1
+    and is killed: the grant is copied out of the dying pool and still
+    transmits, byte for byte."""
+    cl = core.LibraCluster(2, n_shards=size.n_shards,
+                           pages_per_shard=size.pages_per_shard,
+                           page_size=size.page, secret=b"chip-smoke",
+                           device=dev)
+    w0, w1 = cl.workers
+    crt = core.ClusterRuntime(cl)
+    src = cl.socket(worker=0)
+    dst = cl.socket(worker=1)
+    rng = np.random.default_rng(7)
+    payload = rng.integers(1000, 2000, size.payload_hi)
+    src.deliver(core.build_message(rng.integers(100, 200,
+                                                size.meta_app(None)),
+                                   payload))
+    kern.reset_launches()
+    got = w0.recv_batch([src], impl="fused-round")
+    torch.cuda.synchronize()
+    launches = dict(kern.LAUNCHES)
+    check(len(got) == 1 and launches["fused_round"] == 1,
+          f"cluster/dead_owner: the fused round did not take the message "
+          f"in ({launches})")
+    (buf, _n), = got.values()
+    dirty = len(w0.pool.dirty_rows())
+    check(dirty > 0, "cluster/dead_owner: no row is truth on the card")
+    vpi = next(iter(src.connection.anchored))
+    granted = cl.grant_into(w1, vpi)
+    check(granted is not None, "cluster/dead_owner: the grant failed")
+    d2h = w0.pool.xfer["d2h_tokens"]
+    info = crt.kill_worker(0)
+    d2h = w0.pool.xfer["d2h_tokens"] - d2h
+    out = buf.copy()
+    out[-1] = core.VpiRegistry.to_token(granted)
+    dst.send(out)
+    wire = np.asarray(dst.tx_wire())
+    check(np.array_equal(wire[-len(payload):], payload),
+          "cluster/dead_owner: the copied-out payload differs")
+    check(info["grants_copied_out"] == 1
+          and cl.stats["dead_grants_copied"] == 1,
+          f"cluster/dead_owner: {info}, {cl.stats}")
+    check(w0.alloc.free_pages == w0.alloc.total_pages
+          and w0.alloc.granted_out_pages == 0,
+          "cluster/dead_owner: the dead pool is not fully free")
+    check(d2h >= len(payload), f"cluster/dead_owner: {d2h} tokens came "
+          "down, fewer than the payload")
+    res = dict(payload_tokens=len(payload), dirty_rows=dirty,
+               copy_out_d2h_tokens=d2h, info=info,
+               dead_grants_copied=cl.stats["dead_grants_copied"],
+               launches=launches)
+    crt.shutdown()
+    return res
+
+
+def cluster_chaos(dev, torch, np, kern):
+    """Directed case (c): the standard chaos scenario of
+    ``scripts/check_failover_recovery_torch.py`` (reset at 25 %, kill at
+    50 %, policy swap at 75 % of the fault-free run's rounds) as
+    ``fused-round`` rounds on the card, under ``run()`` and under
+    ``run_parallel(threads=True)`` in epochs of one round."""
+    path = ROOT / "scripts" / "check_failover_recovery_torch.py"
+    spec = importlib.util.spec_from_file_location("failover_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    size = dict(n_chans=9, n_msgs=12, payload=32)
+    res = {}
+    for threads in (False, True):
+        kw = dict(size, device=dev, batch_impl="fused-round",
+                  threads=threads)
+        tag = f"cluster/chaos/{'threads' if threads else 'run'}"
+        steady = mod.run_scenario(chaos=False, **kw)
+        kern.reset_launches()
+        chaos = mod.run_scenario(chaos=True, steady_rounds=steady["rounds"],
+                                 **kw)
+        torch.cuda.synchronize()
+        launches = dict(kern.LAUNCHES)
+        mod.check_identity(chaos, steady)
+        mod.check_recovery(chaos, size["n_chans"], size["n_msgs"],
+                           threads=threads)
+        check_device_plane(tag, "fused-round", chaos["xfer"],
+                           {"device_fallbacks":
+                            sum(chaos["device_fallbacks"])},
+                           launches, range(3))
+        res["threads" if threads else "run"] = {
+            "steady_rounds": steady["rounds"], "rounds": chaos["rounds"],
+            "msgs": chaos["msgs"], "drops": chaos["drops"],
+            "retries": chaos["retries"], "failovers": chaos["failovers"],
+            "policy_failovers": chaos["policy_failovers"],
+            "breaker": chaos["health"],
+            "seconds": chaos["dt"], "steady_seconds": steady["dt"],
+            "worker_seconds": chaos["worker_s"],
+            "cluster_stats": chaos["cluster_stats"],
+            "fault_hits": chaos["fault_summary"]["hits_by_kind"],
+            "launches": launches}
+        gc.collect()
+    return res
+
+
+def cluster(size: Size, dev, torch, np, core, kern):
+    """Phase 10: the four-worker cluster on the card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    keep = ("rounds", "worker_rounds", "seconds", "resident_init_seconds",
+            "rounds_per_s", "msgs", "msgs_per_s", "worker_seconds",
+            "launches", "stats")
+    runs = {}
+    for tls, plan in ((None, (("fused-round", "run"), ("auto", "run"),
+                              ("host", "run"), ("fused-round", "threads"),
+                              ("host", "threads"))),
+                      ("hw", (("fused-round", "run"), ("host", "run")))):
+        got = cluster_identity(size, tls, plan, dev, torch, np, core, kern)
+        runs[tls or "plaintext"] = {f"{r['impl']}/{r['executor']}":
+                                    {k: r[k] for k in keep} for r in got}
+        runs[tls or "plaintext"]["rule_hits"] = got[0]["verdicts"][
+            "rule_hits"]
+    fb = cluster_fallback(size, dev, torch, np, core, kern)
+    dead = cluster_dead_owner(size, dev, torch, np, core, kern)
+    chaos = cluster_chaos(dev, torch, np, kern)
+    emit({"phase": "cluster", "workers": CLUSTER_WORKERS,
+          "cross_channels": CROSS_CHANNELS, "identical": True, "runs": runs,
+          "fallback": {k: {kk: v[kk] for kk in keep}
+                       for k, v in fb.items()},
+          "dead_owner": dead, "chaos": chaos,
+          "seconds": time.perf_counter() - t0})
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2153,6 +2488,7 @@ def main() -> int:
         runs[tls or "plaintext"] = timed(f"e2e_{tls or 'plaintext'}", e2e,
                                          size, tls, dev, torch, np, core, kern)
     timed("trace", trace, size, dev, torch, np, core)
+    timed("cluster", cluster, size, dev, torch, np, core, kern)
     ss = ServeSize()
     cfg = get_config(ss.arch)
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)

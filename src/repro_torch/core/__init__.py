@@ -2,8 +2,8 @@
 
 PyTorch port of the JAX package's ``repro.core``: the same modules and
 names, with the resident pool and each round's operands as torch tensors
-on ``LibraStack(device=...)``. The multi-worker ``cluster`` and the
-``faults`` chaos harness are not ported yet.
+on ``LibraStack(device=...)`` (and ``LibraCluster(device=...)``, which
+gives every worker its own resident pool).
 
 Three layers, top to bottom:
 
@@ -20,6 +20,10 @@ multiplexes N flows with mixed parser policies over one stack.
 * ``runtime``        — :class:`ProxyRuntime` / :class:`ProxyChannel`
                        (readiness sets, round-robin/priority/DRR
                        scheduling, send budgets, ticks)
+* ``cluster``        — :class:`LibraCluster` / :class:`SteeringPolicy` /
+                       :class:`ClusterRuntime`: N-worker scale-out with
+                       RSS-style flow steering, the cross-worker VPI
+                       grant protocol, and work-stealing scheduling
 
 **Mechanism (datapaths)** — the selective-copy machinery itself.
 
@@ -46,12 +50,17 @@ multiplexes N flows with mixed parser policies over one stack.
                        epoch-versioned hot swap, plus the
                        :class:`HealthTable` backend circuit breaker that
                        feeds the match pass's ``live`` rule mask
+* ``faults``         — :class:`FaultPlan`: seeded, deterministic chaos
+                       injection (EAGAIN storms, resets, pool pressure,
+                       worker kills, frame corruption) for testing the
+                       fault-tolerance layer
 
 The free functions ``libra_recv``/``libra_send``/``libra_close``/
 ``expire_teardowns`` remain exported as the explicit-plumbing compatibility
 layer; new code should go through the facade (see docs/API.md).
 """
 from repro_torch.core.anchor_pool import AnchorPool, PageRef, PoolExhausted
+from repro_torch.core.cluster import ClusterRuntime, LibraCluster, SteeringPolicy
 from repro_torch.core.crypto import (
     REC_MAGIC,
     CryptoRecordParser,
@@ -65,6 +74,7 @@ from repro_torch.core.crypto import (
 )
 from repro_torch.core.device_pool import DevicePool, DeviceRangeError
 from repro_torch.core.egress import expire_teardowns, libra_close, libra_send
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.ingress import libra_recv
 from repro_torch.core.parser import (
     BUILTIN_PARSERS,
@@ -111,6 +121,7 @@ __all__ = [
     # facade
     "LibraStack", "LibraSocket", "Events",
     "ProxyRuntime", "ProxyChannel", "ChannelStats", "LatencyHistogram",
+    "LibraCluster", "SteeringPolicy", "ClusterRuntime",
     "SEND_OK", "SEND_EAGAIN",
     # mechanism
     "AnchorPool", "PageRef", "PoolExhausted",
@@ -126,7 +137,7 @@ __all__ = [
     "PolicyTable", "PolicyRule", "MatchCond", "Action", "Verdict",
     "PythonPolicyRouter", "rule", "eq", "between", "prefix",
     "forward", "rewrite", "rate_limit", "drop", "punt",
-    "HealthTable",
+    "HealthTable", "FaultPlan",
     # kTLS-analogue record layer
     "CryptoRecordParser", "TlsSession", "REC_MAGIC", "RecordAuthError",
     "seal_record", "seal_stream", "open_record", "open_stream", "record_tag",

@@ -10,6 +10,11 @@ module of the package on a machine with no ``nvcc``.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int``, and returns ``cudaGetLastError()``.
+
+Worker threads (``ClusterRuntime.run_parallel(threads=True)``) may reach
+their first launch together: :func:`load` builds and opens the library
+once under a lock, and :func:`count_launch` bumps the wrappers' launch
+counts under another.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -44,6 +50,8 @@ SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def sources():
@@ -112,15 +120,30 @@ def load() -> ctypes.CDLL:
     """The datapath kernels' library, built on first call."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.libra_error_string.argtypes = [ctypes.c_int]
-        lib.libra_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.libra_error_string.argtypes = [ctypes.c_int]
+                lib.libra_error_string.restype = ctypes.c_char_p
+                _LIB = lib
     return _LIB
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]``, exact when several threads launch."""
+    with _COUNT_LOCK:
+        counts[name] += 1
+
+
+def reset_counts(counts: dict) -> None:
+    """Set every launch count of ``counts`` to 0."""
+    with _COUNT_LOCK:
+        for k in counts:
+            counts[k] = 0
 
 
 def check(rc: int, name: str) -> None:

@@ -27,13 +27,12 @@ _check = _build.check_tensor
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
     _build.launch(name, dev, *args)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
 
 
 def paged_attention(q: torch.Tensor, pool: torch.Tensor,

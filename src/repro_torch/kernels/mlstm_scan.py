@@ -31,8 +31,7 @@ _check = _build.check_tensor
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,5 +69,5 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(),
                   out.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
                   b * h, s, dh, chunk)
-    LAUNCHES["mlstm_scan"] += 1
+    _build.count_launch(LAUNCHES, "mlstm_scan")
     return out, (c, n, m)

@@ -80,8 +80,7 @@ def _smem_limit(dev: torch.device) -> Optional[int]:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 #: operand check of the datapath kernels: every operand is int32
@@ -96,7 +95,7 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     """Launch ``libra_<name>`` on ``dev``'s current stream (raising if the
     launch was refused) and count it."""
     _build.launch(name, dev, *args)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
 
 
 def selective_copy(stream: torch.Tensor, meta_len: torch.Tensor,

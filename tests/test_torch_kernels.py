@@ -280,3 +280,65 @@ def test_c_interface_matches_the_bound_signatures():
     assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
     assert len(list(_build.CSRC.glob("*.cu"))) == 7
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+class _FakeLib:
+    """Stands in for the kernels' ``ctypes`` library: every entry point
+    and ``libra_error_string`` accept attributes and calls."""
+
+    def __getattr__(self, name):
+        fn = lambda *a: 0  # noqa: E731
+        self.__dict__[name] = fn
+        return fn
+
+
+def test_first_load_builds_once_and_counts_are_exact_under_threads(
+        monkeypatch):
+    """Worker threads reach their first launch together: sixteen threads
+    (more than the cores) calling ``load()`` build and open the library
+    once, and bumping one count N times each leave exactly 16 x N, with
+    the interpreter switching threads as often as it can."""
+    import sys
+    import threading
+    import time
+
+    builds, opens = [], []
+
+    def slow_build(verbose=False):
+        builds.append(threading.get_ident())
+        time.sleep(0.05)            # widen the window a race would need
+        return "libfake.so"
+
+    def fake_cdll(path):
+        opens.append(path)
+        return _FakeLib()
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(kern, "LAUNCHES", dict.fromkeys(kern.LAUNCHES, 0))
+    n_threads, n, libs = 16, 2000, []
+    start = threading.Barrier(n_threads, timeout=30)
+
+    def worker():
+        start.wait()
+        libs.append(_build.load())
+        for _ in range(n):
+            _build.count_launch(kern.LAUNCHES, "fused_round")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=worker) for _ in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts)
+    assert len(builds) == 1 and opens == ["libfake.so"]
+    assert len(libs) == n_threads and all(lib is libs[0] for lib in libs)
+    assert kern.LAUNCHES["fused_round"] == n_threads * n
+    kern.reset_launches()
+    assert all(v == 0 for v in kern.LAUNCHES.values())
