@@ -12,9 +12,10 @@ order:
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
    ones, with every optional operand on and off: ``fused_round`` at ring
-   depths ``n_buffers`` 0, 2, 3 and 4, also on edge rows (a payload window
-   off its 16-byte boundary; S = 31, the 4-byte copy path), a 70 x 40
-   policy table (read from global memory) and pages of two tiles;
+   depths ``n_buffers`` 0, 2, 3, 4 and 8 (every depth phase 11 may pick),
+   also on edge rows (a payload window off its 16-byte boundary; S = 31,
+   the 4-byte copy path), a 70 x 40 policy table (read from global
+   memory) and pages of two tiles;
    ``selective_gather`` also at a page of 6 tokens and of two tiles;
    ``selective_copy`` also on rows at the edges of its 16-byte groups
    (``meta_len % 4`` and ``S % 4`` each 0 to 3, payloads ending at S or
@@ -111,6 +112,23 @@ order:
    ``fused-round`` rounds, under ``run()`` and under threads. Prints each
    run's seconds, rounds/s and msgs/s, the threads' per-worker seconds,
    the grant, copy and kill stats and the launches per kernel.
+11. **depth** (run right after phase 10) -- the fused round's ring depth
+   on the main path. ``kernels/dma_profile.profile_fused_depths`` on the
+   card at ``n_buffers`` 0, 2, 3, 4 and 8, plaintext and with both
+   keystreams, at two shapes: the datapath cell's round (64 rows x 17
+   tasks, pages of 1024 tokens, 16 pages a row, 256 metadata tokens) and
+   the N = 256 point of ``benchmarks/bench_batched_datapath.py`` (256
+   rows, 4352 tasks); each depth's ring, best wall-clock round and best
+   CUDA-event kernel time, ``dma_compute_profile`` at the picked depth and
+   ``auto_buffer_depth``'s pick (the least kernel time). Then phases 2 and 3's ``fused-round``
+   runs with ``stack.pool.fused_buffers`` at 0, at the depth picked at
+   the N = 256 shape with both keystreams, and at the depth
+   ``auto_buffer_depth`` returns under ``LIBRA_FUSED_BUFFERS=4`` (which
+   must be 4), beside ``host``: wire bytes, counters and verdicts
+   identical to ``host`` and to the default depth's run, ``xfer``
+   identical to the default depth's, and every ``fused_round`` launch of
+   a run at the ring depth its ``fused_buffers`` names
+   (``selective_copy.FUSED_DEPTHS``).
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -156,6 +174,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -209,6 +228,9 @@ DATAPATH = ("selective_copy", "selective_gather", "policy_match",
             "fused_round")
 # fused_round's ring depths held and timed: 0 is the wrapper's default
 FUSED_DEPTHS = (0, 2, 3, 4)
+# ring depths phase 11 profiles, any of which it may pick and run the
+# main path at: each is held against the plain version in phase 1
+PROFILE_DEPTHS = FUSED_DEPTHS + (8,)
 # kernels each datapath run must launch, and kernels it must not: a fused
 # round anchors and matches in its one launch, but sends its speculation
 # missed (policy reroutes, drops, cross-worker grants) still gather in
@@ -531,7 +553,7 @@ def parity(size: Size, dev, torch, np, ops, tt, kernels=DATAPATH):
                     c["tables"], meta_max=meta_max, impl=impl,
                     n_buffers=depth, **kw)
             want = run("ref", c["pool"].clone())
-            for depth in FUSED_DEPTHS:      # bit-identical at every depth
+            for depth in PROFILE_DEPTHS:    # bit-identical at every depth
                 pk = c["pool"].clone()
                 ok, orr = run_pair(lambda p: run("cuda", p, depth),
                                    lambda _p: want, pk, None, torch)
@@ -627,8 +649,10 @@ def check_device_plane(tag: str, impl: str, xfers, counters, launches,
               f"{launches[k]} times")
 
 
-def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern):
+def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern,
+            fused_buffers: int = 0):
     stack, rt, table = build_run(size, impl, tls, dev, np, core)
+    stack.pool.fused_buffers = fused_buffers
     # the one-time residency upload (128 MiB) is set-up, timed apart
     t0 = time.perf_counter()
     if impl != "host":
@@ -641,6 +665,7 @@ def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kern.LAUNCHES)
+    fused_depths = dict(kern.FUSED_DEPTHS)
     wires = [d.tls.open_wire(d.tx_wire()) if tls else d.tx_wire()
              for ch in rt.channels for d in ch.dsts]
     out = dict(impl=impl, rounds=rt.rounds, seconds=dt,
@@ -648,7 +673,9 @@ def e2e_run(size: Size, impl: str, tls, dev, torch, np, core, kern):
                rounds_per_s=rt.rounds / dt,
                msgs=rt.messages_forwarded(),
                msgs_per_s=rt.messages_forwarded() / dt,
-               launches=launches, xfer=dict(stack.pool.xfer),
+               launches=launches, fused_depths=fused_depths,
+               fused_buffers=stack.pool.fused_buffers,
+               xfer=dict(stack.pool.xfer),
                counters=dataclasses.asdict(stack.counters),
                verdicts=table.summary())
     rt.shutdown()
@@ -1010,6 +1037,121 @@ def cluster(size: Size, dev, torch, np, core, kern):
 # ---------------------------------------------------------------------------
 # phases 5-6: attention parity and serving
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 11: the fused round's ring depth
+# ---------------------------------------------------------------------------
+
+#: rows of a round: the datapath cell's, and the N = 256 point of
+#: benchmarks/bench_batched_datapath.py (its N in {8, 64, 256})
+PROFILE_ROWS = {"cell": 64, "bench_n256": 256}
+PROFILE_ITERS = 20
+#: the depth the override pins
+OVERRIDE_DEPTH = 4
+
+
+def depth_profiles(size: Size, dev, dp, kern) -> dict:
+    """``profile_fused_depths`` at each of :data:`PROFILE_ROWS` (page,
+    pages a row and metadata as the deployment's), plaintext and with
+    both keystreams: each depth's ring, best wall-clock round and best
+    CUDA-event kernel time; ``dma_compute_profile`` at the picked depth;
+    and ``auto_buffer_depth``'s pick from each sweep."""
+    out = {}
+    for label, b in PROFILE_ROWS.items():
+        shape = dict(b=b, page=size.page, pps=size.pps,
+                     meta_max=size.meta_max)
+        row = dict(shape, tasks=b * (1 + size.pps * -(-size.page
+                                                       // kern.TILE)))
+        for variant, ks in (("plain", False), ("keystreams", True)):
+            profs = dp.profile_fused_depths(
+                depths=PROFILE_DEPTHS, iters=PROFILE_ITERS, warmup=3,
+                impl="cuda", device=dev, keystreams=ks, **shape)
+            pick = dp.auto_buffer_depth(profiles=profs)
+            check(all(p.kernel_s is not None for p in profs.values()),
+                  f"depth/{label}/{variant}: no kernel time")
+            row[variant] = {
+                "pick": pick,
+                "depths": {d: {"ring_depth": p.ring_depth,
+                               "round_us": p.round_s * 1e6,
+                               "kernel_us": p.kernel_s * 1e6}
+                           for d, p in profs.items()},
+                "dma_compute": dp.dma_compute_profile(
+                    iters=PROFILE_ITERS, warmup=3, n_buffers=pick,
+                    impl="cuda", device=dev, keystreams=ks, **shape)}
+        out[label] = row
+    return out
+
+
+def depth_runs(size: Size, tls, depths, dev, torch, np, core, kern):
+    """The ``fused-round`` run of phase 2 (or 3) at each of ``depths``
+    (``fused_buffers``), beside ``host``: wire bytes, counters and
+    verdicts equal to ``host`` and to the default depth's run, ``xfer``
+    equal to the default depth's, and every ``fused_round`` launch at the
+    ring depth ``fused_buffers`` names."""
+    from repro_torch.kernels.selective_copy import ring_depth
+
+    host, host_w = e2e_run(size, "host", tls, dev, torch, np, core, kern)
+    out = []
+    base = base_w = None
+    for fb in depths:
+        r, w = e2e_run(size, "fused-round", tls, dev, torch, np, core, kern,
+                       fused_buffers=fb)
+        gc.collect()
+        tag = f"depth/{tls or 'plaintext'}/fused_buffers={fb}"
+        for ref, ref_w, what in ((host, host_w, "host"),
+                                 (base, base_w, "the default depth")):
+            if ref is None:
+                continue
+            check(same_wires(w, ref_w, np), f"{tag}: wire bytes differ "
+                  f"from {what}")
+            for k in ("counters", "verdicts", "msgs"):
+                check(r[k] == ref[k], f"{tag}: {k} differ from {what}")
+        if base is None:
+            base, base_w = r, w
+        check(r["xfer"] == base["xfer"], f"{tag}: xfer differs from the "
+              "default depth's")
+        check_device_plane(tag, "fused-round", [r["xfer"]], r["counters"],
+                           r["launches"], (0,))
+        n = r["launches"]["fused_round"]
+        check(r["fused_depths"] == {ring_depth(fb): n},
+              f"{tag}: launched at ring depths {r['fused_depths']}, "
+              f"expected {n} at {ring_depth(fb)}")
+        out.append({"fused_buffers": fb, "ring_depth": ring_depth(fb),
+                    "rounds": r["rounds"], "seconds": r["seconds"],
+                    "launches": r["launches"],
+                    "fused_depths": r["fused_depths"]})
+    return out
+
+
+def depth(size: Size, dev, torch, np, core, kern):
+    """Phase 11: profile the depths, then run the main path at the depth
+    ``auto_buffer_depth`` picks at the N = 256 shape and at the depth the
+    ``LIBRA_FUSED_BUFFERS`` override pins, against the default depth and
+    ``host``."""
+    from repro_torch.kernels import dma_profile as dp
+
+    saved = os.environ.pop("LIBRA_FUSED_BUFFERS", None)
+    try:
+        profiles = depth_profiles(size, dev, dp, kern)
+        pick = profiles["bench_n256"]["keystreams"]["pick"]
+        os.environ["LIBRA_FUSED_BUFFERS"] = str(OVERRIDE_DEPTH)
+        override = dp.auto_buffer_depth()
+        check(override == OVERRIDE_DEPTH, f"LIBRA_FUSED_BUFFERS="
+              f"{OVERRIDE_DEPTH}: auto_buffer_depth returned {override}")
+        del os.environ["LIBRA_FUSED_BUFFERS"]
+        runs = {tls or "plaintext": depth_runs(size, tls,
+                                               (0, pick, override), dev,
+                                               torch, np, core, kern)
+                for tls in (None, "hw")}
+    finally:
+        os.environ.pop("LIBRA_FUSED_BUFFERS", None)
+        if saved is not None:
+            os.environ["LIBRA_FUSED_BUFFERS"] = saved
+    emit({"phase": "depth", "identical": True, "card": card_line(torch),
+          "iters": PROFILE_ITERS, "profiles": profiles, "pick": pick,
+          "override": override, "runs": runs})
+    return runs
+
 
 def paged_case(gen, dev, torch, *, b, hq, hkv, hd, page, pps, pool_pages,
                seq_lens, gaps=False):
@@ -2351,7 +2493,7 @@ def fused_ab(paths, dev, torch, np, ops, tt, _build) -> int:
     floor = empty_kernel_ms(torch)
     rc = 0
     for vname, (kw, nbytes, nops) in fvars.items():
-        for depth in FUSED_DEPTHS + (8,):
+        for depth in PROFILE_DEPTHS:
             rc |= ab_bytes_report(
                 "fused_ab", f"{vname} n_buffers={depth}", libs, _build,
                 lambda: ops.fused_round(f["stream"], f["meta_len"],
@@ -2489,6 +2631,7 @@ def main() -> int:
                                          size, tls, dev, torch, np, core, kern)
     timed("trace", trace, size, dev, torch, np, core)
     timed("cluster", cluster, size, dev, torch, np, core, kern)
+    timed("depth", depth, size, dev, torch, np, core, kern)
     ss = ServeSize()
     cfg = get_config(ss.arch)
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)

@@ -5,7 +5,7 @@ The same modules as the JAX package's ``repro.configs``, copied: each exports
 same-family config for CPU tests). Here are the dense configs that
 ``LibraEngine`` serves and the ``ssm`` config xlstm-350m, which
 ``XLSTMModel`` runs; the other architectures wait for their model families
-(``ROADMAP.md``, queue 1, item 8).
+(``ROADMAP.md``, queue 1, items 5 and 7).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP.md, queue 1, item 8)")
+            f"{name!r} is not ported yet (ROADMAP.md, queue 1, items 5 and 7)")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])

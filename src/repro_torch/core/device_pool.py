@@ -35,6 +35,13 @@ datapath tests assert it.
 Residency is lazy: a host-only stack never touches the device. With
 ``device="cuda"`` and no GPU present, the first device round raises; it
 never carries on on the CPU.
+
+:attr:`DevicePool.fused_buffers` is the ring depth the stack passes to
+every fused round (``n_buffers``). In the port 0 means the kernel's
+default depth (``DEFAULT_FUSED_DEPTH`` in
+:mod:`repro_torch.kernels.selective_copy`), not the TPU kernel's blocked
+layout; 2 and up is that many ring slots, and 1 or a negative value
+raises ``ValueError`` from the round.
 """
 from __future__ import annotations
 
@@ -68,6 +75,11 @@ class DevicePool(TokenPool):
         # batched egress rounds asked of the device plane but gathered on
         # the host (int32-range bounce, non-contiguous page list)
         self.xfer["host_gathers"] = 0
+        # DMA staging ring depth for the fused one-kernel round (0 = the
+        # kernel's default depth); set from kernels.dma_profile.
+        # auto_buffer_depth or the LIBRA_FUSED_BUFFERS env var by the
+        # deployment
+        self.fused_buffers = 0
 
     # -- residency -----------------------------------------------------------
     @property
@@ -263,6 +275,7 @@ class DevicePool(TokenPool):
         cond_hi: Optional[np.ndarray] = None,
         live: Optional[np.ndarray] = None,
         meta_ks: Optional[np.ndarray] = None,
+        n_buffers: int = 0,
     ) -> Tuple[Optional[np.ndarray], np.ndarray]:
         """The **one-kernel scheduling round**: anchor + hw-kTLS keystream
         XOR + policy first-match + egress gather in a SINGLE launch against
@@ -270,7 +283,8 @@ class DevicePool(TokenPool):
         ``device_rounds`` bump where the multi-pass path pays three.
         Upload is O(batch) operands plus any host-dirty rows the round
         overwrites; only the verdict column and the gathered payload block
-        come down.
+        come down. ``n_buffers`` is the kernel's ring depth (0: the
+        default depth; 1 or negative: ``ValueError``).
 
         Returns ``(verdict [B] | None, gathered [B, pps*page] int64)``."""
         from repro_torch.kernels import ops
@@ -283,7 +297,7 @@ class DevicePool(TokenPool):
         _meta, self._dev, verdict, gathered = ops.fused_round(
             st, ml, tl, self._dev, tb, meta_max=meta_max, impl=impl,
             keystream=ks, tx_keystream=txks, cond_off=off, cond_lo=lo,
-            cond_hi=hi, live=lv, meta_ks=mks)
+            cond_hi=hi, live=lv, meta_ks=mks, n_buffers=n_buffers)
         del _meta  # host buffers keep the int64-exact metadata
         self._note_round(ptr)
         self._dev_dirty[rows] = True

@@ -729,7 +729,8 @@ class LibraStack:
             verdict, gathered = self.pool.fused_round_device(
                 stream, meta_len, total_len, tables, meta_max=meta_max,
                 impl=impl, keystream=ks, tx_keystream=txks,
-                cond_off=off, cond_lo=lo, cond_hi=hi, live=live)
+                cond_off=off, cond_lo=lo, cond_hi=hi, live=live,
+                n_buffers=getattr(self.pool, "fused_buffers", 0))
         except DeviceRangeError:
             return False
         if policy is not None:

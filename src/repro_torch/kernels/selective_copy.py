@@ -6,7 +6,8 @@ contiguity, allocates its outputs with ``torch.empty``, launches on
 never falls back to the plain version (:mod:`repro_torch.kernels.ref`);
 :mod:`repro_torch.kernels.ops` picks between the two by the tensors'
 device. :data:`LAUNCHES` counts the launches of each kernel, bumped only
-where the kernel is launched.
+where the kernel is launched, and :data:`FUSED_DEPTHS` the ring depth of
+each ``fused_round`` launch.
 
 Every kernel is a hand-written CUDA C++ port of a Pallas TPU kernel of
 the JAX package (file:line in each ``.cu`` header); data is int32 and the
@@ -15,7 +16,8 @@ pool is updated in place.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +26,10 @@ from repro_torch.kernels import _build
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"selective_copy": 0, "selective_gather": 0, "policy_match": 0,
             "fused_round": 0}
+#: ``fused_round`` launches per ring depth since the last
+#: :func:`reset_launches`
+FUSED_DEPTHS: Dict[int, int] = {}
+_DEPTH_LOCK = threading.Lock()
 
 _MAX_GRID_Y = 65535
 
@@ -81,6 +87,15 @@ def _smem_limit(dev: torch.device) -> Optional[int]:
 
 def reset_launches() -> None:
     _build.reset_counts(LAUNCHES)
+    with _DEPTH_LOCK:
+        FUSED_DEPTHS.clear()
+
+
+def _count_depth(depth: int) -> None:
+    """Add one to ``FUSED_DEPTHS[depth]`` (from 0 for a depth not yet
+    launched), exact when several threads launch."""
+    with _DEPTH_LOCK:
+        FUSED_DEPTHS[depth] = FUSED_DEPTHS.get(depth, 0) + 1
 
 
 #: operand check of the datapath kernels: every operand is int32
@@ -255,4 +270,5 @@ def fused_round(stream: torch.Tensor, meta_len: torch.Tensor,
             _ptr(pool), _ptr(meta), _ptr(out), _ptr(cond_off), _ptr(cond_lo),
             _ptr(cond_hi), _ptr(live), _ptr(meta_ks), _ptr(verdict), b, s,
             p_ext, page, pps, meta_max, r, k, depth)
+    _count_depth(depth)
     return meta, pool, verdict, out

@@ -8,7 +8,7 @@ print throughput / latency / boundary-traffic stats, as the JAX package's
 ``--reduced`` (the default) serves the config's small same-family
 variant; ``--no-reduced`` serves the published one. ``--device`` is
 ``cuda`` by default and raises without a GPU. Only the Libra engine is
-ported; the baseline engines wait (``ROADMAP.md``, queue 1, item 8). The
+ported; the baseline engines wait (``ROADMAP.md``, queue 1, item 6). The
 engine serves the dense family only: xlstm-350m has no KV pool, and the
 JAX launcher fails on it too.
 """

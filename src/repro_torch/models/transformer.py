@@ -12,7 +12,7 @@ loop (the JAX package scans them). Computation is float32.
 
 The ``moe``, ``hybrid`` and ``vlm`` families, training and the contiguous
 baseline (``prefill_dense`` / ``decode_step_dense``) are not ported yet
-(``ROADMAP.md``, queue 1, item 8).
+(``ROADMAP.md``, queue 1, items 6 to 8).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ class TransformerLM:
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                "(ROADMAP.md, queue 1, item 8)")
+                "(ROADMAP.md, queue 1, item 7)")
         if attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
                              f"one of {IMPLS})")

@@ -12,7 +12,7 @@ in place of ``plan_decode_sharding``), and the model updates the pool in
 place (in place of donation). ``device`` is ``"cuda"`` by default and
 raises without a GPU; tests pass ``"cpu"``. The baseline engines
 (``StandardEngine``, ``CopierEngine``, ``StaticEngine``) are not ported yet
-(``ROADMAP.md``, queue 1, item 8).
+(``ROADMAP.md``, queue 1, item 6).
 """
 from __future__ import annotations
 

@@ -3,15 +3,29 @@
 seeds.
 
 :func:`load` executes a test file in a fresh module whose imports of
-``repro.core`` name one package or the other, so module-level RNGs start
-from their seeds again. :func:`run` calls one test of it in each package
-while :func:`observe` records every stack, socket, runtime, cluster, fault
-plan, policy table, health table, allocator, VPI registry, connection
-and receive ring the test builds, and compares what they end with: wire
-bytes, ``CopyCounters``, page counts, channel stats, cluster and steering
-stats, the fault plan's summary and log, policy and health summaries,
-registry sizes and stats, ring contents and fingerprints. The test's own assertions run on both
-sides. Port stacks default to ``device="cpu"`` here.
+``repro.core`` and ``repro.kernels`` name one package or the other, so
+module-level RNGs start from their seeds again. :func:`run` calls one test
+of it in each package while :func:`observe` records every stack, socket,
+runtime, cluster, fault plan, policy table, health table, allocator, VPI
+registry, connection and receive ring the test builds, and compares what
+they end with: wire bytes, ``CopyCounters``, page counts, the pool's
+``xfer`` counts (less ``donated_rounds``, which the port counts for every
+round whose pool keeps its storage, and the port's own ``host_gathers``)
+and ``fused_buffers``, channel stats, cluster and steering stats, the
+fault plan's summary and log, policy and health summaries, registry sizes
+and stats, ring contents and fingerprints. The test's own assertions run
+on both sides. Port stacks, and ``PolicyTable.match_batch`` called by the
+test, default to ``device="cpu"`` here.
+
+While the JAX side runs, its ``stack._SMALL_GATHER_ROWS`` (batched gathers
+of up to four rows served on the host, a shortcut sized for a TPU launch)
+is 0: the port gathers every device-plane round on the device, so the two
+count the same ``xfer``.
+
+``subs`` rewrites a test file's source on one side before it runs (each
+old string must occur), for the cases whose impl the port does not have
+(``'interpret'``, a TPU mode) or where a documented difference changes
+what the port asserts.
 
 A ``@given`` test runs once under hypothesis: each example goes through
 both packages, the port's side replaying the draws the JAX side made.
@@ -26,7 +40,9 @@ import itertools
 import re
 import types
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import pytest
 
 PKGS = {"jax": "repro.core", "torch": "repro_torch.core"}
 TRACKED = ("LibraStack", "LibraSocket", "ProxyRuntime", "ClusterRuntime",
@@ -35,12 +51,21 @@ TRACKED = ("LibraStack", "LibraSocket", "ProxyRuntime", "ClusterRuntime",
 TESTS = Path(__file__).resolve().parent
 
 
-def load(path: Path, pkg: str) -> types.ModuleType:
-    """``path`` executed as a fresh module, its ``repro.core`` imports
-    pointed at ``PKGS[pkg]``."""
+#: a side's source rewrites: ``[(old, new), ...]``
+Subs = Sequence[Tuple[str, str]]
+
+
+def load(path: Path, pkg: str, subs: Subs = ()) -> types.ModuleType:
+    """``path`` executed as a fresh module, ``subs`` applied to its source
+    and its ``repro.core`` and ``repro.kernels`` imports pointed at
+    ``PKGS[pkg]``'s package."""
     src = Path(path).read_text()
+    for old, new in subs:
+        assert old in src, f"{Path(path).name}: {old!r} not found"
+        src = src.replace(old, new)
     if pkg == "torch":
         src = re.sub(r"\brepro\.core\b", PKGS["torch"], src)
+        src = re.sub(r"\brepro\.kernels\b", "repro_torch.kernels", src)
     mod = types.ModuleType(f"_twin_{pkg}_{Path(path).stem}")
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
@@ -78,12 +103,51 @@ def case_id(case: Tuple[str, dict]) -> str:
     return "-".join([name] + [str(v) for v in params.values()])
 
 
+#: the JAX side's impl for a port impl the JAX package names otherwise
+JAX_IMPL = {"fused-round": "fused-round:ref"}
+#: the port's device dispatch, run beside a JAX test's own device impls
+PORT_IMPLS = ("auto", "fused-round")
+
+
+def impl_cases(path: Path, skip=()) -> List[Tuple[str, dict, dict, str]]:
+    """:func:`cases` as ``(name, jax_params, port_params, id)``. An
+    ``impl`` of ``'interpret'`` (a TPU mode the port does not have, and
+    broken on the installed jax for the anchoring kernels) runs as
+    ``'ref'`` on both sides; a test whose ``impl`` grid holds a device
+    impl also runs each of :data:`PORT_IMPLS` on the port against its JAX
+    counterpart."""
+    grid = cases(path, skip)
+    out = []
+    for case in grid:
+        name, params = case
+        impl = params.get("impl")
+        if impl == "interpret":
+            params = dict(params, impl="ref")
+        out.append((name, params, params,
+                    case_id(case) + ("-as-ref" if impl == "interpret"
+                                     else "")))
+    seen = set()
+    for name, params in grid:
+        if params.get("impl", "host") == "host" or name in seen:
+            continue
+        seen.add(name)
+        for impl in PORT_IMPLS:
+            port = dict(params, impl=impl)
+            out.append((name, dict(params, impl=JAX_IMPL.get(impl, impl)),
+                        port, case_id((name, port))))
+    return out
+
+
 def _state(obj) -> tuple:
     kind = type(obj).__name__
     if kind == "LibraStack":
         a = obj.alloc
+        xfer = dict(obj.pool.xfer)
+        xfer.pop("donated_rounds", None)
+        xfer.pop("host_gathers", None)
         return (kind, dataclasses.asdict(obj.counters), a.free_pages,
-                a.total_pages, a.granted_out_pages, len(obj.registry))
+                a.total_pages, a.granted_out_pages, len(obj.registry),
+                xfer, getattr(obj.pool, "fused_buffers", None))
     if kind == "LibraSocket":
         return (kind, obj.tx_wire().tolist(), obj.closed)
     if kind == "ProxyRuntime":
@@ -118,10 +182,23 @@ def _channel(stats) -> dict:
 @contextlib.contextmanager
 def observe(pkg: str):
     """Record every object of :data:`TRACKED` built inside the block (in
-    construction order); port stacks default to ``device="cpu"``."""
+    construction order); port stacks and ``PolicyTable.match_batch``
+    default to ``device="cpu"``, and the JAX package's small-gather
+    shortcut is off."""
     core = importlib.import_module(PKGS[pkg])
     made: list = []
     saved = []
+    mp = pytest.MonkeyPatch()
+    if pkg == "jax":
+        mp.setattr(core.stack, "_SMALL_GATHER_ROWS", 0)
+    else:
+        match = core.PolicyTable.match_batch
+
+        def match_batch(self, *args, **kw):
+            kw.setdefault("device", "cpu")
+            return match(self, *args, **kw)
+
+        mp.setattr(core.PolicyTable, "match_batch", match_batch)
 
     def wrap(cls, init):
         def __init__(self, *args, **kw):
@@ -140,6 +217,7 @@ def observe(pkg: str):
     finally:
         for cls, init in saved:
             cls.__init__ = init
+        mp.undo()
 
 
 def sync_connection_ids() -> None:
@@ -182,14 +260,21 @@ def observed(pkg: str, fn, *args, **kw) -> list:
     return [_state(o) for o in made]
 
 
-def run(path: Path, name: str, **params) -> Dict[str, list]:
+def run(path: Path, name: str, *, subs: Optional[Dict[str, Subs]] = None,
+        jax_params: Optional[dict] = None, **params) -> Dict[str, list]:
     """Run test ``name`` of ``path`` through both packages and assert that
-    what they built ends the same. Returns the records."""
-    fns = {pkg: getattr(load(path, pkg), name) for pkg in PKGS}
+    what they built ends the same. ``subs`` maps a package to its source
+    rewrites; ``jax_params``, when given, are the JAX side's parameters
+    (``params`` the port's). Returns the records."""
+    subs = subs or {}
+    fns = {pkg: getattr(load(path, pkg, subs.get(pkg, ())), name)
+           for pkg in PKGS}
     if hasattr(fns["jax"], "hypothesis"):
         return _run_given(fns)
     sync_connection_ids()
-    seen = {pkg: observed(pkg, fn, **copy.deepcopy(params))
+    kw = {"jax": params if jax_params is None else jax_params,
+          "torch": params}
+    seen = {pkg: observed(pkg, fn, **copy.deepcopy(kw[pkg]))
             for pkg, fn in fns.items()}
     assert seen["torch"] == seen["jax"]
     return seen
