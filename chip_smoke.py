@@ -129,6 +129,23 @@ order:
    identical to the default depth's, and every ``fused_round`` launch of
    a run at the ring depth its ``fused_buffers`` names
    (``selective_copy.FUSED_DEPTHS``).
+12. **baselines** (run right after phase 6, on its parameters and
+   prompts) -- ``StandardEngine``, ``CopierEngine`` and
+   ``StaticEngine(memory_budget=`` the bytes of phase 6's KV pool, 8 slots
+   ``)``, each once through the kernels (``attn_impl='auto'``). Tokens must
+   equal the Libra kernel run's under phase 6's near-tie rule (margins from
+   its plain run); Standard and Copier must agree in
+   ``payload_copy_bytes``, ``steps``, ``prefills`` and ``h2d_bytes``;
+   Copier must download once a step and Standard once per active request a
+   step; ``payload_copy_bytes`` must be the steps times the cache's bytes
+   (none under Static) plus every prompt's prefill KV, and 0 for Libra;
+   the cache must move to new storage every Standard and Copier step and
+   stay in place under Static; ``flash_attention`` must launch once a
+   layer a prefill (64) and ``paged_attention`` never. Prints each
+   engine's tokens/s, p99 latency, time to first token, peak device
+   memory, ms per decode step and ``EngineStats``, and a profiler split of
+   one full-batch Standard decode step (cache copy, matmuls, dense
+   attention, transfers, host gaps).
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -1317,8 +1334,8 @@ class LogitMargins:
         self.where = {}           # (rid, token index) -> (call, row)
         inner = model.logits
 
-        def logits(params, hidden):
-            out = inner(params, hidden)
+        def logits(params, hidden, **kw):
+            out = inner(params, hidden, **kw)
             top = out.topk(2, dim=-1).values
             self.calls.append(((top[:, 0] - top[:, 1]).tolist(),
                                (out.amax(-1) - out.amin(-1)).tolist()))
@@ -1385,23 +1402,58 @@ def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
           len(eng.pool.registry) == 0,
           f"{model.attn_impl}: pages leaked ({alloc.free_pages} of "
           f"{alloc.total_pages} free, the parking page held)")
-    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
-    out = dict(attn_impl=model.attn_impl, seconds=dt,
-               tokens=eng.throughput_tokens(),
-               tokens_per_s=eng.throughput_tokens() / dt,
-               p99_latency_ms=eng.p99_latency() * 1e3,
-               ttft_s={"first": ttft[0], "median": statistics.median(ttft),
-                       "last": ttft[-1]},
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               prefill_step_s=step_s["prefill"],
-               decode_step_ms={k: f(step_s["decode"]) * 1e3 for k, f in (
-                   ("min", min), ("median", statistics.median),
-                   ("max", max))},
-               launches=launches, steps=eng.stats.steps,
-               stats=dataclasses.asdict(eng.stats),
-               counters=dataclasses.asdict(eng.stack.counters),
-               outputs={r.rid: list(r.output) for r in reqs})
+    out = run_summary(eng, reqs, dt, step_s, launches, torch)
+    out["counters"] = dataclasses.asdict(eng.stack.counters)
     return eng, out
+
+
+def run_summary(eng, reqs, dt, step_s, launches, torch) -> dict:
+    """What a serving run prints: tokens/s, p99, time to first token, peak
+    device memory, step times, launches, ``EngineStats`` and outputs."""
+    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    return dict(attn_impl=eng.model.attn_impl, seconds=dt,
+                tokens=eng.throughput_tokens(),
+                tokens_per_s=eng.throughput_tokens() / dt,
+                p99_latency_ms=eng.p99_latency() * 1e3,
+                ttft_s={"first": ttft[0], "median": statistics.median(ttft),
+                        "last": ttft[-1]},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                prefill_step_s=step_s["prefill"],
+                decode_step_ms={k: f(step_s["decode"]) * 1e3 for k, f in (
+                    ("min", min), ("median", statistics.median),
+                    ("max", max))},
+                launches=launches, steps=eng.stats.steps,
+                stats=dataclasses.asdict(eng.stats),
+                outputs={r.rid: list(r.output) for r in reqs})
+
+
+def near_tie_diverged(ss: ServeSize, got: dict, want: dict, margins,
+                      label: str) -> list:
+    """The first token where each request of ``got`` leaves ``want``;
+    fails unless the plain Libra run's top-2 logit margin there is below
+    1e-3 of the logits' spread (a float32 near-tie)."""
+    diverged = []
+    for rid, w in want.items():
+        g = got[rid]
+        check(len(g) == len(w) == ss.gen,
+              f"{label}: request {rid}: wrong length")
+        first = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                     None)
+        if first is None:
+            continue
+        m, spread = margins.margin(rid, first)
+        diverged.append(dict(rid=rid, token=first, margin=m, spread=spread))
+        check(m < 1e-3 * spread,
+              f"{label}: request {rid} token {first}: {g[first]} vs "
+              f"{w[first]}, plain top-2 margin {m} is not below 1e-3 of "
+              f"the spread {spread}")
+    return diverged
+
+
+#: pause that opens a decode step's profiler window, and the label of the
+#: kernel after it that must be seen (the Standard split)
+WINDOW_PAUSE_S = 0.2
+WINDOW_MARKER_LABEL = "chip_smoke.window_marker"
 
 
 def decode_split(eng, prompts, ss: ServeSize, torch):
@@ -1418,6 +1470,7 @@ def decode_split(eng, prompts, ss: ServeSize, torch):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAUSE_S)             # see standard_split
         t0 = time.perf_counter()
         eng.step()                             # a decode step, nothing else
         torch.cuda.synchronize()
@@ -1448,8 +1501,10 @@ def decode_split(eng, prompts, ss: ServeSize, torch):
                                          key=lambda kv: -kv[1])[:10])}
 
 
-def serve(ss: ServeSize, dev, torch, np, kattn):
-    """phi4-mini-3.8b under LibraEngine, kernels against plain versions."""
+def serve(ss: ServeSize, dev, torch, np, kattn) -> dict:
+    """phi4-mini-3.8b under LibraEngine, kernels against plain versions.
+    Returns the model, parameters, prompts and margins phase 12 reuses,
+    and the kernel run (``libra``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
@@ -1475,20 +1530,8 @@ def serve(ss: ServeSize, dev, torch, np, kattn):
           "EngineStats differ between the kernel and plain runs")
     check(kern_run["counters"] == ref_run["counters"],
           "CopyCounters differ between the kernel and plain runs")
-    diverged = []
-    for rid, want in ref_run["outputs"].items():
-        got = kern_run["outputs"][rid]
-        check(len(got) == len(want) == ss.gen, f"request {rid}: wrong length")
-        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                     None)
-        if first is None:
-            continue
-        m, spread = margins.margin(rid, first)
-        diverged.append(dict(rid=rid, token=first, margin=m, spread=spread))
-        check(m < 1e-3 * spread,
-              f"request {rid} token {first}: kernel {got[first]} vs plain "
-              f"{want[first]}, plain top-2 margin {m} is not below 1e-3 of "
-              f"the spread {spread}")
+    diverged = near_tie_diverged(ss, kern_run["outputs"], ref_run["outputs"],
+                                 margins, "kernel vs plain")
     for name in kattn.LAUNCHES:
         check(kern_run["launches"][name] > 0,
               f"{name} never launched in the serve run")
@@ -1506,10 +1549,234 @@ def serve(ss: ServeSize, dev, torch, np, kattn):
           "kernels": {k: kern_run[k] for k in keep},
           "plain": {k: ref_run[k] for k in keep},
           "decode_step_split": split})
-    del params
-    torch.cuda.empty_cache()
-    return kern_run
+    # phase 12 serves the same prompts on these parameters
+    return dict(model=models["auto"], params=params, prompts=prompts,
+                margins=margins, libra=kern_run)
 
+
+# ---------------------------------------------------------------------------
+# phase 12: the baseline engines
+# ---------------------------------------------------------------------------
+
+BASELINES = ("standard", "copier", "static")
+#: ``record_function`` label of the dense attention in the Standard split
+DENSE_ATTN_LABEL = "chip_smoke.dense_attention"
+
+
+def baseline_run(ss: ServeSize, name: str, model, params, prompts,
+                 memory_budget: int, dev, torch, kattn):
+    """One run of the baseline engine ``name`` over ``prompts``; returns
+    (engine, results): phase 6's summary, the active requests of each
+    decode step and whether each step left the cache's storage in place."""
+    from repro_torch.core.parser import TokenStreamParser
+    from repro_torch.serving import engine as serving
+
+    cls = {"standard": serving.StandardEngine,
+           "copier": serving.CopierEngine,
+           "static": serving.StaticEngine}[name]
+    kw = (dict(memory_budget=memory_budget) if name == "static"
+          else dict(max_batch=ss.max_batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = cls(model, params, max_len=ss.max_len,
+              parser=TokenStreamParser(header_len=ss.header), device=dev,
+              **kw)
+    check(eng.max_batch == ss.max_batch,
+          f"{name}: {eng.max_batch} slots, not {ss.max_batch}")
+    reqs = [eng.submit(p, max_new_tokens=ss.gen) for p in prompts]
+    kattn.reset_launches()
+    step_s = {"prefill": [], "decode": []}   # a step ends on a download
+    active, same_storage = [], []
+    t0 = time.perf_counter()
+    while eng.waiting or eng.active:
+        prefills, steps = eng.stats.prefills, eng.stats.steps
+        waiting, made = len(eng.waiting), sum(len(r.output) for r in reqs)
+        ptr = eng.cache.data_ptr()
+        ts = time.perf_counter()
+        eng.step()
+        step_s["prefill" if eng.stats.prefills > prefills else "decode"
+               ].append(time.perf_counter() - ts)
+        if eng.stats.steps > steps:       # the step decoded: its tokens,
+            admitted = waiting - len(eng.waiting)   # less the prefill's
+            active.append(sum(len(r.output) for r in reqs) - made - admitted)
+            same_storage.append(eng.cache.data_ptr() == ptr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(sorted(eng.slot_free) == list(range(eng.max_batch)),
+          f"{name}: slots leaked ({eng.slot_free})")
+    out = run_summary(eng, reqs, dt, step_s, dict(kattn.LAUNCHES), torch)
+    out.update(active_per_step=active, same_storage=same_storage,
+               cache_bytes=eng.cache.numel() * 4)
+    return eng, out
+
+
+def standard_split(eng, prompts, ss: ServeSize, torch):
+    """Profiler split of one full-batch StandardEngine decode step: device
+    time of the cache copy (the step's device-to-device copy), the dense
+    attention (kernels launched under a label around it) and the other
+    matmuls (by the op that launched each kernel), the host transfers,
+    the rest; and the host gaps (wall minus device time; one stream, no
+    overlap). Device activity at the very start of a profiler window can be
+    dropped, a warm-up step before it notwithstanding: the window opens on
+    a pause and then a marker kernel under its own label, which must be
+    seen, before the step."""
+    import re
+
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    from repro_torch.models import attention as mattn
+
+    for p in prompts[:ss.max_batch]:
+        eng.submit(p, max_new_tokens=4)
+    eng.step()                                 # prefill + first decode
+    torch.cuda.synchronize()
+    inner = mattn.dense_attention
+
+    def labelled(*args, **kw):
+        with record_function(DENSE_ATTN_LABEL):
+            return inner(*args, **kw)
+
+    mattn.dense_attention = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            eng.step()                         # warm-up decode step
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(WINDOW_PAUSE_S)
+            with record_function(WINDOW_MARKER_LABEL):
+                eng.cache.new_ones(1)           # a kernel under an aten op
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()                         # a decode step, nothing else
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    finally:
+        mattn.dense_attention = inner
+    eng.run()
+    events = list(prof.events())
+    # every device activity, by name
+    by_name = {"cache_copy": "Memcpy DtoD", "d2h": "Memcpy DtoH",
+               "h2d": "Memcpy HtoD"}
+    split = dict.fromkeys((*by_name, "dense_attention", "matmul", "other"),
+                          0.0)
+    device_ms, top = 0.0, {}
+    for e in events:
+        if not str(e.device_type).endswith("CUDA") or \
+                getattr(e, "is_user_annotation", False) or \
+                e.name in (DENSE_ATTN_LABEL, WINDOW_MARKER_LABEL):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        device_ms += ms
+        top[e.name[:70]] = top.get(e.name[:70], 0.0) + ms
+        for kind, prefix in by_name.items():
+            if e.name.startswith(prefix):
+                split[kind] += ms
+    # kernels by the CPU op that launched them
+    matmul = re.compile(r"gemm|gemv|xmma|cutlass|splitK|dot_kernel", re.I)
+    linked_ms, marker_ms = 0.0, None
+    for e in events:
+        if str(e.device_type).endswith("CUDA") or not e.kernels:
+            continue
+        ops, up = set(), e
+        while up is not None:
+            ops.add(up.name)
+            up = up.cpu_parent
+        for k in e.kernels:
+            if WINDOW_MARKER_LABEL in ops:
+                marker_ms = (marker_ms or 0.0) + k.duration / 1e3
+                continue
+            linked_ms += k.duration / 1e3
+            if DENSE_ATTN_LABEL in ops:
+                split["dense_attention"] += k.duration / 1e3
+            elif matmul.search(k.name):
+                split["matmul"] += k.duration / 1e3
+    check(marker_ms is not None,
+          "the profiler's window lost its marker kernel: the split cannot be "
+          "trusted to hold the whole step")
+    device_ms -= marker_ms
+    split["other"] = device_ms - sum(split.values())
+    out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+           "linked_device_ms": linked_ms,
+           "host_gap_ms": wall * 1e3 - device_ms,
+           "device_busy_share": device_ms / (wall * 1e3),
+           "device_ms_by_kind": split,
+           "top_device_ms": dict(sorted(top.items(),
+                                        key=lambda kv: -kv[1])[:10])}
+    for kind in ("cache_copy", "dense_attention", "d2h"):
+        check(split[kind] > 0,
+              f"the profiled Standard step shows no {kind}: {out}")
+    return out
+
+
+def baselines(ss: ServeSize, state: dict, dev, torch, np, kattn):
+    """The Standard, Copier and Static engines on phase 6's parameters and
+    prompts: tokens against the Libra kernel run under the near-tie rule,
+    the stats' relations, the per-step copy (or its absence) in the
+    cache's storage, and the launches of the prefill's flash attention."""
+    model, params, prompts = state["model"], state["params"], state["prompts"]
+    libra = state["libra"]
+    cfg = model.cfg
+    per_slot = (cfg.num_layers * ss.max_len * 2 * cfg.num_kv_heads
+                * cfg.head_dim * 4)
+    budget = int(np.prod(model.kv_pool_shape(ss.pool_pages))) * 4
+    waves = -(-ss.requests // ss.max_batch)
+    runs, diverged, split = {}, {}, None
+    for name in BASELINES:
+        eng, run = baseline_run(ss, name, model, params, prompts, budget,
+                                dev, torch, kattn)
+        if name == "standard":
+            split = standard_split(eng, prompts, ss, torch)
+        del eng
+        runs[name] = run
+        diverged[name] = near_tie_diverged(ss, run["outputs"],
+                                           libra["outputs"], state["margins"],
+                                           f"{name} vs libra")
+        st = run["stats"]
+        check(st["prefills"] == waves and
+              run["launches"]["flash_attention"] == cfg.num_layers * waves,
+              f"{name}: {run['launches']['flash_attention']} flash_attention "
+              f"launches in {st['prefills']} prefills, not "
+              f"{cfg.num_layers} x {waves}")
+        check(run["launches"]["paged_attention"] == 0,
+              f"{name}: paged_attention launched")
+        prefill_kv = ss.requests * per_slot
+        copies = 0 if name == "static" else st["steps"] * run["cache_bytes"]
+        check(st["payload_copy_bytes"] == copies + prefill_kv,
+              f"{name}: payload_copy_bytes {st['payload_copy_bytes']}, not "
+              f"{copies} + {prefill_kv}")
+        if name == "static":
+            check(all(run["same_storage"]),
+                  "static: a donated step moved the cache")
+        else:
+            check(not any(run["same_storage"]),
+                  f"{name}: a step left the cache in place (no copy)")
+    std, cop = runs["standard"]["stats"], runs["copier"]["stats"]
+    for key in ("payload_copy_bytes", "steps", "prefills", "h2d_bytes"):
+        check(std[key] == cop[key],
+              f"standard and copier differ in {key}: {std[key]} {cop[key]}")
+    check(cop["d2h_calls"] == cop["steps"],
+          f"copier: {cop['d2h_calls']} downloads in {cop['steps']} steps")
+    check(std["d2h_calls"] == sum(runs["standard"]["active_per_step"]),
+          f"standard: {std['d2h_calls']} downloads, not one per active "
+          "request a step")
+    check(libra["stats"]["payload_copy_bytes"] == 0,
+          "libra: payload copied")
+    keep = ("seconds", "tokens", "tokens_per_s", "p99_latency_ms", "ttft_s",
+            "peak_mem_gb", "prefill_step_s", "decode_step_ms", "launches",
+            "steps", "stats")
+    emit({"phase": "baselines", "arch": ss.arch, "requests": ss.requests,
+          "max_batch": ss.max_batch, "max_len": ss.max_len,
+          "static_memory_budget": budget, "cache_bytes_per_slot": per_slot,
+          "diverged": diverged,
+          "engines": {n: {k: r[k] for k in keep} for n, r in runs.items()},
+          "libra": {k: libra[k] for k in keep},
+          "standard_decode_step_split": split})
+    return runs
 
 # ---------------------------------------------------------------------------
 # phases 7-8: mLSTM parity and the xLSTM run
@@ -2635,7 +2902,12 @@ def main() -> int:
     ss = ServeSize()
     cfg = get_config(ss.arch)
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)
-    srv = timed("serve", serve, ss, dev, torch, np, kattn)
+    srv_state = timed("serve", serve, ss, dev, torch, np, kattn)
+    srv = srv_state["libra"]
+    base = timed("baselines", baselines, ss, srv_state, dev, torch, np,
+                 kattn)
+    del srv_state
+    torch.cuda.empty_cache()
     xs = XlstmSize()
     mpar = timed("mlstm_parity", mlstm_parity, xs, get_config(xs.arch), dev,
                  torch, ops)
@@ -2659,6 +2931,9 @@ def main() -> int:
             launches = srv["launches"][name]
             err = max(r["max_abs_err"] for r in apar if r["kernel"] == name)
         check(launches > 0, f"{name} never launched on the main path")
+        extra = ({"baseline_launches": {n: r["launches"][name]
+                                        for n, r in base.items()}}
+                 if name == "flash_attention" else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -2666,6 +2941,7 @@ def main() -> int:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "variant": first["variant"],
+            **extra,
         })
         if "fp32_fma_bound_ms" in first:
             kernels[-1]["fp32_fma_bound_ms"] = first["fp32_fma_bound_ms"]

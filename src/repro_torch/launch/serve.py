@@ -1,16 +1,19 @@
-"""Serving launcher of the port: run a model under the Libra engine and
-print throughput / latency / boundary-traffic stats, as the JAX package's
-``repro.launch.serve`` prints them.
+"""Serving launcher of the port: run a model under any of the four engines
+and print throughput / latency / boundary-traffic stats, as the JAX
+package's ``repro.launch.serve`` prints them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine standard \
+      --device cpu
   python -m repro_torch.launch.serve --no-reduced --arch phi4-mini-3.8b
 
-``--reduced`` (the default) serves the config's small same-family
-variant; ``--no-reduced`` serves the published one. ``--device`` is
-``cuda`` by default and raises without a GPU. Only the Libra engine is
-ported; the baseline engines wait (``ROADMAP.md``, queue 1, item 6). The
-engine serves the dense family only: xlstm-350m has no KV pool, and the
-JAX launcher fails on it too.
+``--engine`` is ``libra`` (the default), ``standard``, ``copier`` or
+``static``; ``static`` sizes its batch from a 256 MiB memory budget, as the
+JAX launcher does, and ignores ``--batch``. ``--reduced`` (the default)
+serves the config's small same-family variant; ``--no-reduced`` serves the
+published one. ``--device`` is ``cuda`` by default and raises without a
+GPU. The engines serve the dense family only: xlstm-350m has no KV cache,
+and the JAX launcher fails on it too.
 """
 from __future__ import annotations
 
@@ -23,10 +26,17 @@ from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.core.parser import TokenStreamParser
 from repro_torch.kernels.ops import checked_device
 from repro_torch.models.registry import build_model
-from repro_torch.serving.engine import LibraEngine
+from repro_torch.serving.engine import (
+    CopierEngine,
+    LibraEngine,
+    StandardEngine,
+    StaticEngine,
+)
 
-ENGINES = {"libra": LibraEngine}
+ENGINES = {"libra": LibraEngine, "standard": StandardEngine,
+           "copier": CopierEngine, "static": StaticEngine}
 PAGE_SIZE = 8
+STATIC_MEMORY_BUDGET = 1 << 28
 
 
 def main(argv=None) -> None:
@@ -51,9 +61,14 @@ def main(argv=None) -> None:
     params = model.init_params(0, device=device)
     parser = TokenStreamParser(header_len=args.header_len)
     max_len = args.prompt_len + args.gen + 8
-    eng = ENGINES[args.engine](model, params, max_len=max_len, parser=parser,
-                               max_batch=args.batch, page_size=PAGE_SIZE,
-                               device=device)
+    kw = dict(max_len=max_len, parser=parser, device=device)
+    if args.engine == "static":
+        kw["memory_budget"] = STATIC_MEMORY_BUDGET
+    else:
+        kw["max_batch"] = args.batch
+    if args.engine == "libra":
+        kw["page_size"] = PAGE_SIZE
+    eng = ENGINES[args.engine](model, params, **kw)
 
     rng = np.random.default_rng(0)
     for _ in range(args.requests):

@@ -1,8 +1,11 @@
 """Attention paths of the serving slice, on one device.
 
 PyTorch twins of the JAX package's ``repro.models.attention``, with no mesh
-and no ``shard_map``: one device owns every page (``n_shards`` = 1), so the
-flash-decode combine across chips reduces to ``acc / max(l, 1e-30)``.
+and no ``shard_map``: one device plays shard ``SHARD`` (0) of the
+flash-decode layout, as the JAX package's one-device mesh does, so the
+combine across chips reduces to ``acc / max(l, 1e-30)``. With the engine's
+one-shard stack that device owns every page; under a stack of more shards
+the pages of the others are neither written nor read, as in JAX.
 
 * ``dense_attention`` — the plain reference path the tests hold the
   kernels against.
@@ -30,6 +33,8 @@ import torch
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+#: the shard of the block tables whose pages this device holds
+SHARD = 0
 
 #: (batch rows, page ids, in-page offsets) of the K/V a write lands on
 WriteIndex = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -78,16 +83,16 @@ def decode_write_index(block_tables: torch.Tensor, page_pos: torch.Tensor,
                        seq_lens: torch.Tensor, write_shard: torch.Tensor,
                        write_slot: torch.Tensor, page_size: int) -> WriteIndex:
     """Where each incoming decode token's K/V lands: the rows whose write
-    page exists and covers ``seq_lens``; the JAX package drops the others
-    (``mode="drop"``). The same for every layer of a step, so a step
-    computes it once."""
+    page is on ``SHARD``, exists and covers ``seq_lens``; the JAX package
+    drops the others (``mode="drop"``). The same for every layer of a
+    step, so a step computes it once."""
     b = seq_lens.shape[0]
     rows = torch.arange(b, device=seq_lens.device)
     slot = write_slot.long()[:, None]
     pid = block_tables[rows, write_shard.long()].gather(1, slot)[:, 0]
     base = page_pos[rows, write_shard.long()].gather(1, slot)[:, 0]
     off = seq_lens - base
-    ok = (pid >= 0) & (off >= 0) & (off < page_size)
+    ok = (write_shard == SHARD) & (pid >= 0) & (off >= 0) & (off < page_size)
     keep = ok.nonzero().squeeze(1)
     return keep, pid[keep].long(), off[keep].long()
 
@@ -97,8 +102,8 @@ def paged_decode_attention(
     k_new: torch.Tensor,         # [B, Hkv, hd] current token's K
     v_new: torch.Tensor,         # [B, Hkv, hd]
     pool: torch.Tensor,          # [P, page, 2, Hkv, hd] one layer, in place
-    block_tables: torch.Tensor,  # [B, 1, pps] page ids, -1 invalid
-    page_pos: torch.Tensor,      # [B, 1, pps] base position of each page
+    block_tables: torch.Tensor,  # [B, n_shards, pps] page ids, -1 unused
+    page_pos: torch.Tensor,      # [B, n_shards, pps] base position of a page
     seq_lens: torch.Tensor,      # [B] position of the incoming token
     write_shard: torch.Tensor,   # [B]
     write_slot: torch.Tensor,    # [B]
@@ -118,8 +123,8 @@ def paged_decode_attention(
     kv = torch.stack([k_new, v_new], dim=1).to(pool.dtype)  # [B, 2, Hkv, hd]
     pool.index_put_((pid, off), kv[rows])
     acc, _m, l = ops.paged_attention(
-        q.contiguous(), pool, block_tables[:, 0].contiguous(),
-        page_pos[:, 0].contiguous(), seq_lens, impl=impl)
+        q.contiguous(), pool, block_tables[:, SHARD].contiguous(),
+        page_pos[:, SHARD].contiguous(), seq_lens, impl=impl)
     return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
 
 
@@ -127,12 +132,12 @@ def prefill_write_index(block_tables: torch.Tensor, token_shard: torch.Tensor,
                         token_slot: torch.Tensor, token_off: torch.Tensor,
                         token_valid: torch.Tensor) -> WriteIndex:
     """Where each prompt token's K/V lands, as flat ``b * S + s`` token
-    rows: the valid tokens whose page exists."""
+    rows: the valid tokens whose page is on ``SHARD`` and exists."""
     b, s = token_shard.shape
     rows = torch.arange(b, device=token_shard.device)[:, None]
     pid = block_tables[rows, token_shard.long()].gather(
         2, token_slot.long()[..., None])[..., 0]              # [B, S]
-    ok = token_valid & (pid >= 0)
+    ok = (token_shard == SHARD) & token_valid & (pid >= 0)
     keep = ok.reshape(-1).nonzero().squeeze(1)
     return keep, pid.reshape(-1)[keep].long(), \
         token_off.reshape(-1)[keep].long()
@@ -142,7 +147,7 @@ def prefill_write_pages(
     k: torch.Tensor,             # [B, S, Hkv, hd]
     v: torch.Tensor,
     pool: torch.Tensor,          # [P, page, 2, Hkv, hd] one layer, in place
-    block_tables: torch.Tensor,  # [B, 1, pps]
+    block_tables: torch.Tensor,  # [B, n_shards, pps]
     token_shard: torch.Tensor,   # [B, S] owner shard per token
     token_slot: torch.Tensor,    # [B, S] table slot per token
     token_off: torch.Tensor,     # [B, S] in-page offset per token

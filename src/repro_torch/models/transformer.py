@@ -5,14 +5,17 @@ for ``family == "dense"`` (phi3, phi4, the libra-proxy model). Serving
 follows the Libra datapath: ``prefill`` anchors KV into pool pages in place
 (ingress) and attends through ``ops.flash_attention``; ``decode_step`` reads
 the pages via block-table metadata through ``ops.paged_attention`` and
-returns *only sampled token ids*. Parameters are the JAX package's nested
-dict, layers stacked on a leading axis; the large products stay
-``torch.matmul``, as they are plain XLA dots there. Layers run in a Python
-loop (the JAX package scans them). Computation is float32.
+returns *only sampled token ids*. The standard-stack baseline of the other
+engines is ``prefill_dense`` (the prompt's KV as a contiguous cache, its
+attention through ``ops.flash_attention`` too) and ``decode_step_dense``
+(the whole cache rewritten every step unless donated, full logits out).
+Parameters are the JAX package's nested dict, layers stacked on a leading
+axis; the large products stay ``torch.matmul``, as they are plain XLA dots
+there. Layers run in a Python loop (the JAX package scans them).
+Computation is float32.
 
-The ``moe``, ``hybrid`` and ``vlm`` families, training and the contiguous
-baseline (``prefill_dense`` / ``decode_step_dense``) are not ported yet
-(``ROADMAP.md``, queue 1, items 6 to 8).
+The ``moe``, ``hybrid`` and ``vlm`` families and training are not ported
+yet (``ROADMAP.md``, queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
@@ -115,9 +118,18 @@ class TransformerLM:
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
 
-    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+    def logits(self, params, hidden: torch.Tensor,
+               weight_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden``; with ``weight_dtype`` the head's weights
+        are first rounded to that dtype (and computed with in
+        ``hidden``'s). Both decode steps pass bfloat16: the JAX package's
+        call their ``logits`` without ``compute_dtype``, whose default is
+        bfloat16, so their head weights are rounded so (a fault of the
+        reference, carried so that tokens agree)."""
         c = self.cfg
         w = params["embed"].T if c.tie_embeddings else params["lm_head"]
+        if weight_dtype is not None:
+            w = w.to(weight_dtype).to(hidden.dtype)
         out = hidden @ w
         if c.embed_scale != 1.0:
             out = out * c.embed_scale
@@ -160,8 +172,8 @@ class TransformerLM:
         tokens: torch.Tensor,       # [B] current token ids
         seq_lens: torch.Tensor,     # [B] position of the incoming token
         pool: torch.Tensor,         # [L, P, page, 2, Hkv, hd], updated in place
-        tables: torch.Tensor,       # [B, 1, pps]
-        page_pos: torch.Tensor,     # [B, 1, pps]
+        tables: torch.Tensor,       # [B, n_shards, pps]
+        page_pos: torch.Tensor,     # [B, n_shards, pps]
         write_shard: torch.Tensor,  # [B]
         write_slot: torch.Tensor,   # [B]
     ) -> torch.Tensor:
@@ -186,7 +198,8 @@ class TransformerLM:
             x = x + (out.reshape(b, c.q_dim) @ lp["wo"]) * c.residual_scale
             x = self._mlp_residual(lp, x)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
-        return self.logits(params, x).argmax(dim=-1).to(torch.int32)
+        return self.logits(params, x, weight_dtype=torch.bfloat16
+                           ).argmax(dim=-1).to(torch.int32)
 
     @torch.no_grad()
     def prefill(
@@ -195,7 +208,7 @@ class TransformerLM:
         tokens: torch.Tensor,       # [B, S]
         seq_lens: torch.Tensor,     # [B]
         pool: torch.Tensor,         # [L, P, page, 2, Hkv, hd], updated in place
-        tables: torch.Tensor,       # [B, 1, pps]
+        tables: torch.Tensor,       # [B, n_shards, pps]
         token_shard: torch.Tensor,  # [B, S]
         token_slot: torch.Tensor,
         token_off: torch.Tensor,
@@ -225,3 +238,75 @@ class TransformerLM:
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
         return self.logits(params, last).argmax(dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------------
+    # serving baseline: the "standard stack" contiguous-copy datapath
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill_dense(self, params, tokens: torch.Tensor,
+                      seq_lens: torch.Tensor, max_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Baseline prefill: returns (first_tokens [B] int32, kv_cache
+        [L, B, max_len, 2, Hkv, hd]) -- the contiguous cache the standard
+        stack re-copies every step, zero past the prompt's ``S`` tokens.
+        Attention takes the route of :meth:`prefill`."""
+        c = self.cfg
+        x = self.embed(params, tokens)                          # [B, S, D]
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        kv = x.new_zeros((c.num_layers, b, max_len, 2, c.num_kv_heads,
+                          c.head_dim))
+        for li in range(c.num_layers):
+            lp = layer_params(params, li)
+            h = rms_norm(x, lp["ln1"], c.norm_eps)
+            q, k, v = self._qkv(lp, h, positions)
+            kv[li, :, :s, 0] = k
+            kv[li, :, :s, 1] = v
+            out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
+            x = x + (out.reshape(b, s, c.q_dim) @ lp["wo"]) * c.residual_scale
+            x = self._mlp_residual(lp, x)
+        idx = (seq_lens.long() - 1).clamp(min=0)
+        last = x[torch.arange(b, device=x.device), idx]         # [B, D]
+        last = rms_norm(last, params["final_norm"], c.norm_eps)
+        return self.logits(params, last).argmax(dim=-1).to(torch.int32), kv
+
+    @torch.no_grad()
+    def decode_step_dense(self, params, tokens: torch.Tensor,
+                          seq_lens: torch.Tensor, cache: torch.Tensor, *,
+                          donate: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Standard-stack analogue over the contiguous cache ``[L, B, Smax,
+        2, Hkv, hd]``: write the incoming token's K/V at ``seq_lens``,
+        attend over positions ``<= seq_lens``, and return (FULL float32
+        logits [B, V], cache).
+
+        Undonated, the step first copies the whole cache into a new tensor
+        and writes that one (the JAX package's undonated update makes XLA
+        materialise a fresh cache: the standard stack's per-message payload
+        copy, which the engines count); ``donate=True`` writes ``cache`` in
+        place and returns it. The head's weights are rounded to bfloat16,
+        as in :meth:`decode_step`."""
+        c = self.cfg
+        if not donate:
+            cache = cache.clone()
+        x = self.embed(params, tokens)                          # [B, D]
+        b, smax = x.shape[0], cache.shape[2]
+        rows = torch.arange(b, device=x.device)
+        # dynamic_update_slice clamps the start so that the update fits
+        wpos = seq_lens.long().clamp(0, smax - 1)
+        pos_kv = torch.arange(smax, device=x.device).expand(b, smax)
+        valid = pos_kv <= seq_lens[:, None]
+        for li in range(c.num_layers):
+            lp = layer_params(params, li)
+            h = rms_norm(x, lp["ln1"], c.norm_eps)
+            q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
+            cache_l = cache[li]                                 # [B, Smax, ...]
+            cache_l[rows, wpos] = torch.stack([k[:, 0], v[:, 0]],
+                                              dim=1).to(cache.dtype)
+            out = attn.dense_attention(q, cache_l[:, :, 0], cache_l[:, :, 1],
+                                       seq_lens[:, None], pos_kv,
+                                       causal=False, kv_valid=valid)[:, 0]
+            x = x + (out.reshape(b, c.q_dim) @ lp["wo"]) * c.residual_scale
+            x = self._mlp_residual(lp, x)
+        x = rms_norm(x, params["final_norm"], c.norm_eps)
+        return self.logits(params, x, weight_dtype=torch.bfloat16), cache

@@ -1,18 +1,30 @@
-"""Serving engine of the port: ``LibraEngine``, continuous-batching LLM
-serving over the Libra datapath.
+"""Serving engines of the port -- the paper's four stacks, as
+continuous-batching LLM servers, PyTorch twins of the JAX package's
+``repro.serving.engine``:
 
-PyTorch twin of the JAX package's ``repro.serving.engine.LibraEngine``:
-selective copy — paged anchored KV updated in place, the parser policy
-splits header/payload, only token ids + O(pages) int32 metadata cross the
-host boundary, VPI handles support zero-copy forwarding. ``EngineStats``
-counts exactly what the JAX engine counts.
+* ``LibraEngine``    -- selective copy: paged anchored KV updated in place,
+                        the parser policy splits header/payload, only token
+                        ids + O(pages) int32 metadata cross the host
+                        boundary, VPI handles support zero-copy forwarding.
+                        A ``stack`` (and its ``kv_pool``) may be shared
+                        between engines.
+* ``StandardEngine`` -- standard stack: contiguous KV copied whole every
+                        step (``decode_step_dense`` undonated), full logits
+                        downloaded *per connection*, one transfer and one
+                        sync each.
+* ``CopierEngine``   -- Copier: the same data volume, the per-connection
+                        downloads batched into one copy a step.
+* ``StaticEngine``   -- F-Stack/DPDK analogue: one preallocated dense cache
+                        written in place; a fixed memory budget caps the
+                        batch.
 
-One device and no mesh: every page lives on ``device`` (``n_shards`` = 1,
-in place of ``plan_decode_sharding``), and the model updates the pool in
-place (in place of donation). ``device`` is ``"cuda"`` by default and
-raises without a GPU; tests pass ``"cpu"``. The baseline engines
-(``StandardEngine``, ``CopierEngine``, ``StaticEngine``) are not ported yet
-(``ROADMAP.md``, queue 1, item 6).
+``EngineStats`` counts exactly what the JAX engines count. One device and
+no mesh: every page lives on ``device`` (in place of
+``plan_decode_sharding``), and the model updates the pool in place (in
+place of donation). ``device`` is ``"cuda"`` by default and raises without
+a GPU; tests pass ``"cpu"``. The baselines write a prefilled request's KV
+into its cache slot in place, where the JAX engines make a new cache with
+``.at[].set`` (the stats count neither).
 """
 from __future__ import annotations
 
@@ -74,7 +86,9 @@ class _EngineBase:
     name = "base"
 
     def __init__(self, model, params, *, max_batch: int = 8,
-                 max_len: int = 512, parser: Optional[TokenStreamParser] = None):
+                 max_len: int = 512, parser: Optional[TokenStreamParser] = None,
+                 device="cuda"):
+        self.device = checked_device(device)
         self.model = model
         self.cfg = model.cfg
         self.params = params
@@ -86,6 +100,9 @@ class _EngineBase:
         self.active: List[Request] = []
         self.completed: List[Request] = []
         self._rid = 0
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> Request:
         self._rid += 1
@@ -118,25 +135,43 @@ class LibraEngine(_EngineBase):
     name = "libra"
 
     def __init__(self, model, params, *, max_batch: int = 8, max_len: int = 512,
-                 page_size: int = 16, parser=None, device="cuda"):
+                 page_size: int = 16, parser=None, pool_pages: int = 0,
+                 stack: Optional[LibraStack] = None,
+                 kv_pool: Optional[PagedKVPool] = None, device="cuda"):
         super().__init__(model, params, max_batch=max_batch, max_len=max_len,
-                         parser=parser)
-        self.device = checked_device(device)
+                         parser=parser, device=device)
         self.page_size = page_size
         self.pps = max_len // page_size + 2
         # one LibraStack per engine "kernel": it owns the page allocator, the
-        # VPI registry, the tick clock, and the copy counters. One device
-        # owns every page, so the stack has one shard.
-        self.stack = LibraStack(n_shards=1,
-                                pages_per_shard=max_batch * self.pps + 4,
-                                page_size=page_size, device=self.device)
-        self.pool = PagedKVPool(model, self.stack.alloc, self.stack.registry,
-                                device=self.device)
+        # VPI registry, the tick clock, and the copy counters. A shared
+        # ``stack`` pools that host state across engines; zero-copy
+        # CROSS-ENGINE handoff additionally needs the device KV itself
+        # shared -- pass the first engine's ``kv_pool`` to the second
+        # (handles forwarded into an engine with its own pool would index a
+        # different, zero-filled device tensor).
+        if stack is None:
+            stack = LibraStack(n_shards=1,
+                               pages_per_shard=(pool_pages
+                                                or max_batch * self.pps + 4),
+                               page_size=page_size, device=self.device)
+        elif pool_pages:
+            raise ValueError("pool_pages conflicts with an external stack: "
+                             "the stack's allocator defines the geometry")
+        if stack.alloc.page_size != page_size:
+            raise ValueError(f"the stack's pages hold {stack.alloc.page_size} "
+                             f"tokens, the engine's {page_size}")
+        self.stack = stack
+        if kv_pool is not None:
+            if kv_pool.alloc is not stack.alloc:
+                raise ValueError("a shared kv_pool must be backed by the "
+                                 "shared stack's allocator")
+            self.pool = kv_pool
+        else:
+            self.pool = PagedKVPool(model, page_size=page_size,
+                                    alloc=stack.alloc, registry=stack.registry,
+                                    device=self.device)
         # parking page for inactive slots (keeps decode NaN-free)
         self._parking = self.pool.alloc.alloc_page(0, 0)
-
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- ingress (prefill anchors the payload) -------------------------------
     def _prefill_group(self, group: List[Request]) -> None:
@@ -267,3 +302,128 @@ class LibraEngine(_EngineBase):
         """Drop a forwarded handle (the backend finished with the shared
         context). Facade call so call-sites never touch the pool."""
         self.pool.release(h)
+
+
+# ---------------------------------------------------------------------------
+# baselines
+# ---------------------------------------------------------------------------
+
+class StandardEngine(_EngineBase):
+    """Contiguous KV re-copied per step + per-connection logits transfers."""
+    name = "standard"
+    donate_cache = False
+    fused_d2h = False
+
+    def __init__(self, model, params, *, max_batch: int = 8, max_len: int = 512,
+                 parser=None, device="cuda"):
+        super().__init__(model, params, max_batch=max_batch, max_len=max_len,
+                         parser=parser, device=device)
+        c = self.cfg
+        self.cache = torch.zeros((c.num_layers, max_batch, max_len, 2,
+                                  c.num_kv_heads, c.head_dim),
+                                 dtype=torch.float32, device=self.device)
+        self.slot_free = list(range(max_batch))
+
+    def _cache_bytes(self) -> int:
+        return self.cache.numel() * 4
+
+    def _prefill_group(self, group: List[Request]) -> None:
+        # the JAX engine pads to at least 8 tokens
+        s = max(8, max(len(r.prompt) for r in group))
+        tokens = np.stack([_pad_to(r.prompt, s) for r in group])
+        seq_lens = np.array([len(r.prompt) for r in group], np.int32)
+        first, kv = self.model.prefill_dense(
+            self.params, self._dev(tokens), self._dev(seq_lens), self.max_len)
+        first = first.cpu().numpy()
+        now = time.perf_counter()
+        for i, r in enumerate(group):
+            self.cache[:, r.slot] = kv[:, i]
+            r.output.append(int(first[i]))
+            r.first_token_at = now
+            if r.done:  # gen=1 completes at prefill
+                r.done_at = now
+                self.slot_free.append(r.slot)
+                self.completed.append(r)
+                self.stats.completed += 1
+            else:
+                self.active.append(r)
+        self.stats.h2d_bytes += tokens.nbytes
+        self.stats.d2h_bytes += first.nbytes
+        self.stats.prefills += 1
+        # the prefill KV lands in a fresh contiguous buffer: full copy
+        self.stats.payload_copy_bytes += kv.numel() * 4
+        self.stats.alloc_events += len(group)
+
+    def step(self) -> None:
+        group = []
+        while self.waiting and self.slot_free:
+            r = self.waiting.pop(0)
+            r.slot = self.slot_free.pop(0)
+            group.append(r)
+        if group:
+            self._prefill_group(group)
+        if not self.active:
+            return
+
+        b = self.max_batch
+        tokens = np.zeros(b, np.int32)
+        seq_lens = np.zeros(b, np.int32)
+        for r in self.active:
+            tokens[r.slot] = r.output[-1]
+            seq_lens[r.slot] = len(r.prompt) + len(r.output) - 1
+        logits, self.cache = self.model.decode_step_dense(
+            self.params, self._dev(tokens), self._dev(seq_lens), self.cache,
+            donate=self.donate_cache)
+        if not self.donate_cache:
+            # undonated contiguous cache: the step wrote a fresh copy --
+            # the standard stack's per-message payload copy
+            self.stats.payload_copy_bytes += self._cache_bytes()
+        # recv path: logits cross to the host
+        if self.fused_d2h:
+            host_logits = logits.cpu().numpy()
+            self.stats.d2h_bytes += host_logits.nbytes
+            self.stats.d2h_calls += 1
+        else:
+            host_logits = np.zeros((b, logits.shape[-1]), np.float32)
+            for r in self.active:  # per-connection recv copies
+                host_logits[r.slot] = logits[r.slot].cpu().numpy()
+                self.stats.d2h_bytes += host_logits[r.slot].nbytes
+                self.stats.d2h_calls += 1
+        self.stats.h2d_bytes += tokens.nbytes + seq_lens.nbytes
+        self.stats.steps += 1
+
+        now = time.perf_counter()
+        still = []
+        for r in self.active:
+            r.output.append(int(np.argmax(host_logits[r.slot])))
+            if r.done:
+                r.done_at = now
+                self.slot_free.append(r.slot)
+                self.completed.append(r)
+                self.stats.completed += 1
+            else:
+                still.append(r)
+        self.active = still
+
+
+class CopierEngine(StandardEngine):
+    """Copier: same volume, fused into one copy per step."""
+    name = "copier"
+    donate_cache = False
+    fused_d2h = True
+
+
+class StaticEngine(StandardEngine):
+    """F-Stack analogue: preallocated fixed-budget buffers (fast per step,
+    concurrency collapses with payload size)."""
+    name = "static"
+    donate_cache = True
+    fused_d2h = True
+
+    def __init__(self, model, params, *, memory_budget: int, max_len: int = 512,
+                 parser=None, device="cuda"):
+        c = model.cfg
+        per_slot = c.num_layers * max_len * 2 * c.num_kv_heads * c.head_dim * 4
+        max_batch = max(1, memory_budget // per_slot)
+        super().__init__(model, params, max_batch=max_batch, max_len=max_len,
+                         parser=parser, device=device)

@@ -2,10 +2,14 @@
 
 PyTorch twin of the JAX package's ``repro.serving.kv_cache``.
 ``PagedKVPool`` pairs ONE resident float32 pool tensor on a device with the
-host-side ``AnchorPool`` allocator and produces the int32 metadata arrays
-(block tables, page positions, write coordinates) that the device
-mechanisms consume — the control-plane half of the Libra datapath. The
-model writes the pool in place (JAX donates it).
+host-side ``AnchorPool`` allocator -- an external one (a ``LibraStack``'s,
+``alloc=``) or one of explicit geometry (``n_shards``, ``pages_per_shard``,
+``max_pages_per_seq``) -- and produces the int32 metadata arrays (block
+tables, page positions, write coordinates) that the device mechanisms
+consume — the control-plane half of the Libra datapath. The model writes
+the pool in place (JAX donates it); a model whose pages hold another
+number of tokens raises ``ValueError``, as do both geometries at once (the
+JAX package asserts).
 """
 from __future__ import annotations
 
@@ -30,16 +34,32 @@ class SeqHandle:
 
 
 class PagedKVPool:
-    def __init__(self, model, alloc: AnchorPool, registry: VpiRegistry,
-                 device="cuda"):
+    def __init__(self, model, n_shards: Optional[int] = None,
+                 pages_per_shard: Optional[int] = None,
+                 page_size: int = 16, registry: Optional[VpiRegistry] = None,
+                 max_pages_per_seq: int = 0,
+                 alloc: Optional[AnchorPool] = None, device="cuda"):
         self.model = model
-        # the allocator (a LibraStack's) defines the device pool's shape
+        # either an external allocator (a LibraStack's -- its geometry
+        # defines the device pool shape) or explicit geometry, never both
+        if alloc is not None:
+            if n_shards is not None or pages_per_shard is not None:
+                raise ValueError("pass geometry via alloc= OR "
+                                 "n_shards/pages_per_shard, not both")
+            if alloc.page_size != page_size:
+                raise ValueError(f"the allocator's pages hold "
+                                 f"{alloc.page_size} tokens, not {page_size}")
+        else:
+            alloc = AnchorPool(n_shards, pages_per_shard, page_size,
+                               max_pages_per_seq=max_pages_per_seq)
         if model.page_size != alloc.page_size:
             raise ValueError(f"the model's pool pages hold {model.page_size} "
                              f"tokens, the allocator's {alloc.page_size}")
         self.alloc = alloc
         self.page_size = alloc.page_size
-        self.registry = registry
+        # ``is None``: an empty registry is falsy, and the JAX package's
+        # ``registry or VpiRegistry()`` swaps a stack's fresh one for its own
+        self.registry = registry if registry is not None else VpiRegistry()
         self.device = checked_device(device)
         self.pool = torch.zeros(model.kv_pool_shape(alloc.total_pages),
                                 dtype=torch.float32, device=self.device)

@@ -394,6 +394,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "scripts").glob("*_torch.py"))
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 20
     bad = []
     for path in files:

@@ -256,32 +256,54 @@ def test_engine_refuses_a_model_of_another_page_size(twin):
 # the launcher
 # ---------------------------------------------------------------------------
 
-def test_serve_launcher_reports_what_the_jax_launcher_reports():
-    """Same requests, same engine geometry: the boundary-traffic and
-    payload lines are identical; throughput and latency are timings. The
-    JAX launcher runs as its own process, as its entry point is run."""
-    argv = ["--requests", "3", "--prompt-len", "12", "--gen", "3",
-            "--batch", "2"]
+def _launcher_lines(engine):
+    """The port's and the JAX launcher's report of the same requests under
+    ``engine``; the JAX launcher runs as its own process, as its entry
+    point is run."""
+    argv = ["--engine", engine, "--requests", "3", "--prompt-len", "12",
+            "--gen", "3", "--batch", "2"]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         tserve.main(argv + ["--device", "cpu"])
-    t_lines = buf.getvalue().splitlines()
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(filter(None, [
                    str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
     res = subprocess.run([sys.executable, "-m", "repro.launch.serve", *argv],
                          capture_output=True, text=True, env=env, timeout=300,
                          check=True)
-    j_lines = res.stdout.splitlines()
+    return buf.getvalue().splitlines(), res.stdout.splitlines()
+
+
+def test_serve_launcher_reports_what_the_jax_launcher_reports():
+    """Same requests, same engine geometry: the boundary-traffic and
+    payload lines are identical; throughput and latency are timings."""
+    t_lines, j_lines = _launcher_lines("libra")
     assert len(t_lines) == len(j_lines) == 4
     assert t_lines[0] == j_lines[0] == "engine=libra batch=2 requests=3"
     assert t_lines[2:] == j_lines[2:]
     assert t_lines[1].startswith("throughput: ")
 
 
+@pytest.mark.parametrize("engine", ["standard", "copier", "static"])
+def test_serve_launcher_baselines_report_what_the_jax_launcher_reports(
+        engine):
+    """The same for the baseline engines: ``static`` takes its batch from
+    the 256 MiB budget in both launchers."""
+    t_lines, j_lines = _launcher_lines(engine)
+    assert len(t_lines) == len(j_lines) == 4
+    assert t_lines[0] == j_lines[0]
+    assert t_lines[0].startswith(f"engine={engine} batch=")
+    assert t_lines[0].endswith(" requests=3")
+    assert t_lines[2:] == j_lines[2:]
+    assert t_lines[1].startswith("throughput: ")
+    assert not t_lines[3].startswith("payload: copied=0.00MB")
+
+
 def test_serve_launcher_flags():
     with pytest.raises(SystemExit):
-        tserve.main(["--engine", "standard", "--device", "cpu"])
+        tserve.main(["--engine", "fstack", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main(["--no-reduced", "--arch", "phi4-mini-3.8b"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserve.main(["--engine", "static"])
