@@ -37,7 +37,10 @@ order:
 3. **e2e hw-kTLS** -- the same with ``tls="hw"`` sockets (RX, TX and
    metadata keystreams through the kernels).
 4. **trace** -- the device's busy share of one plaintext run per device
-   path (``torch.profiler``).
+   path (``torch.profiler``), and the round assembly split out: the
+   traced stack's ``recv_batch`` and ``forward_batch`` wrapped on the
+   instance under profiler labels, each one's host seconds, share of the
+   run's wall and the device time launched under it.
 5. **attn_parity** -- the two attention kernels against their plain
    versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4 (and
    8 and 12 for paged attention), every head dim the wrappers take (16 to
@@ -146,6 +149,21 @@ order:
    memory, ms per decode step and ``EngineStats``, and a profiler split of
    one full-batch Standard decode step (cache copy, matmuls, dense
    attention, transfers, host gaps).
+13. **benches** (run right after phase 11) -- the port's smoke benches
+   (``benchmarks_torch.run``'s ``SMOKE_BENCHES`` but ``cluster_proxy`` and
+   ``chaos_proxy``, whose wall-clock gates depend on how the host schedules
+   threads and whose paths phase 10 holds on the card) through the
+   port's runner in this process, under ``LIBRA_BENCH_SMOKE=1`` (restored
+   after), once on the card and once on the CPU (the plain versions),
+   artifacts in a temporary directory. No ``ERROR`` row, no bench without
+   rows, no identity field false, no pool sync, host gather or device
+   fallback on a resident-pool row; the CUDA run's rows equal to the CPU
+   run's once the wall clock's fields are dropped
+   (``benchmarks_torch.common.untimed``; ``dma_overlap``'s by name only,
+   its depth pick being by kernel time on the card); ``selective_copy``,
+   ``selective_gather``, ``policy_match``, ``fused_round``,
+   ``paged_attention`` and ``flash_attention`` each launched by the CUDA
+   run, nothing by the CPU run.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -741,16 +759,69 @@ def e2e(size: Size, tls, dev, torch, np, core, kern):
     return runs
 
 
+#: profiler labels of the round assembly, on the traced stack alone
+ASSEMBLY_LABELS = {"recv_batch": "chip_smoke.recv_batch",
+                   "forward_batch": "chip_smoke.forward_batch"}
+
+
+def label_assembly(stack, host_s: dict, record_function) -> None:
+    """Wrap this ``stack``'s ``recv_batch`` and ``forward_batch`` (on the
+    instance, nowhere else) under :data:`ASSEMBLY_LABELS`, adding each
+    call's host seconds to ``host_s``."""
+    for name, label in ASSEMBLY_LABELS.items():
+        inner = getattr(stack, name)
+
+        def wrapped(*args, _inner=inner, _label=label, **kw):
+            t0 = time.perf_counter()
+            try:
+                with record_function(_label):
+                    return _inner(*args, **kw)
+            finally:
+                host_s[_label] += time.perf_counter() - t0
+
+        setattr(stack, name, wrapped)
+
+
+def assembly_split(events, host_s: dict, wall: float) -> dict:
+    """Host seconds in ``recv_batch`` and ``forward_batch``, their share
+    of the run's wall, and the device seconds of the kernels and copies
+    launched under each (linked through ``FunctionEvent.kernels`` and
+    ``cpu_parent``)."""
+    device_s = dict.fromkeys(ASSEMBLY_LABELS.values(), 0.0)
+    for e in events:
+        if str(e.device_type).endswith("CUDA") or not e.kernels:
+            continue
+        ops, up = set(), e
+        while up is not None:
+            ops.add(up.name)
+            up = up.cpu_parent
+        for label in device_s:
+            if label in ops:
+                device_s[label] += sum(k.duration for k in e.kernels) / 1e6
+    out = {name: {"host_s": host_s[label],
+                  "wall_share": host_s[label] / wall,
+                  "device_s": device_s[label]}
+           for name, label in ASSEMBLY_LABELS.items()}
+    rest = wall - sum(host_s.values())
+    out["rest_of_run"] = {"host_s": rest, "wall_share": rest / wall}
+    return out
+
+
 def trace(size: Size, dev, torch, np, core):
     """Device busy share of one plaintext run per device path, from a
     ``torch.profiler`` trace (device time summed over every kernel and
-    copy, over the run's host wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+    copy, over the run's host wall time), and the round assembly split
+    out: the host seconds in the stack's ``recv_batch`` and
+    ``forward_batch`` (wrapped on the instance under profiler labels),
+    their share of the wall, and the device time launched under each."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     out = {}
     for impl in ("fused-round", "auto"):
         stack, rt, _table = build_run(size, impl, None, dev, np, core)
         stack.pool._ensure_device()
+        host_s = dict.fromkeys(ASSEMBLY_LABELS.values(), 0.0)
+        label_assembly(stack, host_s, record_function)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -762,15 +833,21 @@ def trace(size: Size, dev, torch, np, core):
         by_name = {}
         for e in prof.key_averages():
             # device-side events only (kernels, copies, memsets): the CPU
-            # ops that launched them carry the same time again
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            # ops that launched them carry the same time again, and a
+            # label's device-side span covers its kernels again
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and \
+                    e.key not in host_s:
                 by_name[e.key] = e.device_time_total
         device_us = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        split = assembly_split(prof.events(), host_s, wall)
+        check(all(split[n]["host_s"] > 0 for n in ASSEMBLY_LABELS),
+              f"trace/{impl}: a round-assembly label saw no call: {split}")
         out[impl] = {"wall_s": wall, "device_s": device_us / 1e6,
                      "device_busy_share": device_us / 1e6 / wall,
                      "rounds": rt.rounds,
-                     "top_device_us": {k[:60]: v for k, v in top}}
+                     "top_device_us": {k[:60]: v for k, v in top},
+                     "assembly": split}
     emit({"phase": "trace", "runs": out})
     return out
 
@@ -1168,6 +1245,124 @@ def depth(size: Size, dev, torch, np, core, kern):
           "iters": PROFILE_ITERS, "profiles": profiles, "pick": pick,
           "override": override, "runs": runs})
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the port's benches
+# ---------------------------------------------------------------------------
+
+#: the smoke benches phase 13 leaves to phase 10: their wall-clock gates
+#: (threads >= 1.5x at W = 4, recovery >= 0.7x) depend on how the host
+#: schedules threads, and phase 10 holds their paths on the card
+BENCHES_LEFT_TO_PHASE_10 = ("cluster_proxy", "chaos_proxy")
+#: kernels the benches' CUDA run must launch
+BENCH_KERNELS = DATAPATH + ("paged_attention", "flash_attention")
+#: the benches whose rows compare by name only: its depth pick is by
+#: kernel time on the card and by wall time on the CPU (phase 11 holds it)
+BENCHES_BY_NAME = ("dma_overlap",)
+#: fields (or ``derived`` pairs) that carry a bench's identity checks
+IDENTITY_FIELDS = ("counters_match", "counters_match_single_stack",
+                   "identical", "plaintext_identical")
+
+
+def bench_rows(path: Path) -> list:
+    check(path.exists(), f"{path.name}: the bench wrote no artifact")
+    with open(path) as f:
+        rows = json.load(f)["rows"]
+    check(rows, f"{path.name}: the bench wrote no rows")
+    return rows
+
+
+def check_bench_row(tag: str, row: dict) -> None:
+    """No ERROR row, no identity field false, and a resident-pool row
+    (``xfer`` counted, not the legacy host pool's ``host_sync`` series)
+    with no pool sync, no host gather and no device fallback."""
+    name = row["name"]
+    check(name != "ERROR", f"{tag}: {row.get('error')}")
+    pairs = dict(t.split("=", 1) for t in row.get("derived", "").split()
+                 if "=" in t)
+    for k in IDENTITY_FIELDS:
+        for v in (row.get(k), pairs.get(k)):
+            check(v in (None, True, "True"), f"{tag}/{name}: {k} is {v}")
+    if "xfer_pool_syncs" in row and "host_sync" not in name:
+        for k in ("xfer_pool_syncs", "xfer_host_gathers",
+                  "device_fallbacks"):
+            check(row.get(k, 0) == 0, f"{tag}/{name}: {k} = {row[k]}")
+
+
+def benches(dev, torch, kern, kattn, kmlstm):
+    """Phase 13: the port's smoke benches (``benchmarks_torch.run``'s
+    ``SMOKE_BENCHES`` less :data:`BENCHES_LEFT_TO_PHASE_10`, a scope and
+    not a caught failure) through its runner in this process, once on the
+    card and once on the CPU (the plain versions), under
+    ``LIBRA_BENCH_SMOKE=1`` (restored after), with artifacts in a
+    temporary directory (never over ``results/bench_torch/``). Fails on an
+    ``ERROR`` row, a bench with no rows, an identity field that is false,
+    a pool sync, host gather or device fallback on a resident-pool row, a
+    CUDA row that differs from its CPU row once ``common.untimed`` has
+    dropped the wall clock's fields (``dma_overlap``'s by name only), a
+    kernel of :data:`BENCH_KERNELS` the CUDA run did not launch, or a
+    launch in the CPU run. Returns each kernel's launches in the CUDA
+    run (``mlstm_scan``'s too: no bench drives xLSTM)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from benchmarks_torch import common as bcommon
+    from benchmarks_torch import run as brun
+
+    chosen = [(n, m) for n, m in brun.SMOKE_BENCHES
+              if n not in BENCHES_LEFT_TO_PHASE_10]
+    saved = os.environ.get("LIBRA_BENCH_SMOKE")
+    os.environ["LIBRA_BENCH_SMOKE"] = "1"
+    rows, launches, seconds = {}, {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for where in ("cuda", "cpu"):
+                out = Path(tmp) / where
+                for k in (kern, kattn, kmlstm):
+                    k.reset_launches()
+                t0 = time.perf_counter()
+                # the benches' CSV lines stay out of this script's output
+                with contextlib.redirect_stdout(io.StringIO()):
+                    failed = brun.run(chosen, device=where,
+                                      out_dir=str(out))
+                torch.cuda.synchronize()
+                seconds[where] = time.perf_counter() - t0
+                launches[where] = {**kern.LAUNCHES, **kattn.LAUNCHES,
+                                   **kmlstm.LAUNCHES}
+                rows[where] = {n: bench_rows(out / f"BENCH_{n}.json")
+                               for n, _m in chosen}
+                for n, rs in rows[where].items():
+                    for r in rs:
+                        check_bench_row(f"benches/{where}/{n}", r)
+                check(failed == 0, f"benches/{where}: {failed} bench(es) "
+                      "raised")
+    finally:
+        if saved is None:
+            os.environ.pop("LIBRA_BENCH_SMOKE", None)
+        else:
+            os.environ["LIBRA_BENCH_SMOKE"] = saved
+    for n, _m in chosen:
+        got, want = rows["cuda"][n], rows["cpu"][n]
+        check([r["name"] for r in got] == [r["name"] for r in want],
+              f"benches/{n}: the CUDA run's rows are not the CPU run's")
+        if n in BENCHES_BY_NAME:
+            continue
+        for g, w in zip(got, want):
+            check(bcommon.untimed(g) == bcommon.untimed(w),
+                  f"benches/{n}/{g['name']}: {bcommon.untimed(g)} != "
+                  f"{bcommon.untimed(w)}")
+    for k in BENCH_KERNELS:
+        check(launches["cuda"][k] > 0, f"benches: {k} never launched")
+    check(not any(launches["cpu"].values()),
+          f"benches: the CPU run launched {launches['cpu']}")
+    emit({"phase": "benches", "identical": True,
+          "benches": [n for n, _m in chosen],
+          "left_to_phase_10": list(BENCHES_LEFT_TO_PHASE_10),
+          "rows": {n: len(rs) for n, rs in rows["cuda"].items()},
+          "seconds": seconds, "launches": launches["cuda"]})
+    return launches["cuda"]
 
 
 def paged_case(gen, dev, torch, *, b, hq, hkv, hd, page, pps, pool_pages,
@@ -2899,6 +3094,8 @@ def main() -> int:
     timed("trace", trace, size, dev, torch, np, core)
     timed("cluster", cluster, size, dev, torch, np, core, kern)
     timed("depth", depth, size, dev, torch, np, core, kern)
+    bench_launches = timed("benches", benches, dev, torch, kern, kattn,
+                           kmlstm)
     ss = ServeSize()
     cfg = get_config(ss.arch)
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)
@@ -2934,6 +3131,7 @@ def main() -> int:
         extra = ({"baseline_launches": {n: r["launches"][name]
                                         for n, r in base.items()}}
                  if name == "flash_attention" else {})
+        extra["bench_launches"] = bench_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -24,143 +24,25 @@ any other value (``fused-round``, ``auto``, ``ref``, ...) runs batched
 rounds of that ``batch_impl`` against each worker's resident pool.
 ``run_scenario(threads=True)`` drives the workers as real threads
 (``run_parallel(threads=True)``) in epochs of one round, so that fault
-times, which are in epochs under threads, stay in rounds. The script
-imports only ``repro_torch`` and numpy.
+times, which are in epochs under threads, stay in rounds. The scenario
+(``run_scenario``, ``check_identity``) is
+``benchmarks_torch/bench_chaos_proxy.py``'s; the script imports only
+``repro_torch``, ``benchmarks_torch`` and numpy.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 from pathlib import Path
 
-import numpy as np
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-from repro_torch.core import (  # noqa: E402
-    ClusterRuntime,
-    FaultPlan,
-    HealthTable,
-    LibraCluster,
-    PolicyTable,
-    build_message,
-    eq,
-    forward,
-    rule,
+# the scenario's one copy lives in the bench
+from benchmarks_torch.bench_chaos_proxy import (  # noqa: E402,F401
+    check_identity,
+    run_scenario,
 )
-
-PAGE = 16
-
-#: app metadata starts after the [MAGIC, len_meta, len_payload] header
-TAG = 3
-
-N_WORKERS = 3
-KILLED_WORKER = 2
-
-
-def _table(health=None) -> PolicyTable:
-    return PolicyTable([rule(forward(0, failover=1), eq(TAG, 7))],
-                       health=health)
-
-
-def _frames_of(wire) -> list:
-    w = np.asarray(wire)
-    out, pos = [], 0
-    while pos < len(w):
-        span = 3 + int(w[pos + 1]) + int(w[pos + 2])
-        out.append(tuple(int(x) for x in w[pos:pos + span]))
-        pos += span
-    return out
-
-
-def run_scenario(*, chaos: bool, n_chans: int, n_msgs: int, payload: int,
-                 steady_rounds: int = 0, seed: int = 0, device="cuda",
-                 batch_impl: str = "host", threads: bool = False) -> dict:
-    """One full run of the workload; ``chaos=True`` arms the standard
-    scenario with event times derived from ``steady_rounds`` (the
-    fault-free run's round count; with ``threads``, its epoch count)."""
-    cl = LibraCluster(N_WORKERS, n_shards=4, pages_per_shard=2048,
-                      page_size=PAGE, secret=b"chaos-bench", device=device)
-    health = HealthTable(2, fail_threshold=2)
-    plan = FaultPlan(seed=13)
-    rt_kw = ({} if batch_impl == "host"
-             else dict(batched=True, batch_impl=batch_impl))
-    crt = ClusterRuntime(cl, policy=_table(health), fault_plan=plan, **rt_kw)
-    if chaos:
-        plan.reset(0, at=max(steady_rounds // 4, 1))
-        plan.kill_worker(KILLED_WORKER, at=max(steady_rounds // 2, 2))
-
-        def swap_all(rt):
-            for t in rt.policies:
-                if t is not None:
-                    t.swap([rule(forward(0, failover=1), eq(TAG, 7))])
-        plan.at(max(3 * steady_rounds // 4, 3), swap_all)
-
-    rng = np.random.default_rng(seed)
-    chans, dst_pairs, sent = [], [], []
-    for i in range(n_chans):
-        src = cl.socket(worker=i % N_WORKERS)
-        pair = [cl.socket(worker=(i + 1) % N_WORKERS) for _ in range(2)]
-        chans.append(crt.channel(src, pair))
-        dst_pairs.append(pair)
-        frames = [build_message(
-            np.concatenate([[7], rng.integers(100, 200, 3)]),
-            rng.integers(1000, 2000, payload)) for _ in range(n_msgs)]
-        sent.append([tuple(int(x) for x in f) for f in frames])
-        src.deliver(np.concatenate(frames))
-
-    t0 = time.perf_counter()
-    worker_s = None
-    if threads:
-        _msgs, worker_s = crt.run_parallel(threads=True, epoch_rounds=1)
-    else:
-        crt.run()
-    dt = time.perf_counter() - t0
-
-    delivered = [sorted(_frames_of(d0.tx_wire()) + _frames_of(d1.tx_wire()))
-                 for d0, d1 in dst_pairs]
-    drops = sum(c.stats.timeouts + c.stats.drops for c in chans)
-    p99s = [s["p99"] for s in crt.latency_summary().values()
-            if s.get("count", 0)]
-    res = {
-        "msgs": crt.messages_forwarded(),
-        "dt": dt,
-        "worker_s": worker_s,
-        "rounds": crt.rounds,
-        "drops": drops,
-        "retries": sum(c.stats.retries for c in chans),
-        "failovers": sum(c.stats.failovers for c in chans),
-        # batched rounds re-route in the policy verdict, not on the channel
-        "policy_failovers": cl.counters_aggregate().policy_failovers,
-        "p99_us": 1e6 * max(p99s) if p99s else 0.0,
-        "delivered": delivered,
-        "sent": [sorted(s) for s in sent],
-        "cluster_stats": dict(cl.stats),
-        "fault_summary": plan.summary(),
-        "health": health.summary(),
-        "xfer": [dict(w.pool.xfer) for w in cl.workers],
-        "device_fallbacks": [w.counters.device_fallbacks
-                             for w in cl.workers],
-    }
-    crt.shutdown()          # asserts zero leaked pages/grants on every pool
-    return res
-
-
-def check_identity(chaos: dict, steady: dict) -> None:
-    """Every chaos-delivered message is byte-identical to one the steady
-    run delivered (exactly once), and every missing one is a counted
-    drop."""
-    lost = 0
-    for got, exp in zip(chaos["delivered"], chaos["sent"]):
-        assert len(got) == len(set(got)), "duplicate delivery under chaos"
-        assert set(got) <= set(exp), "foreign bytes delivered under chaos"
-        lost += len(exp) - len(got)
-    assert lost == chaos["drops"], \
-        f"{lost - chaos['drops']} messages lost without a counted drop"
-    assert steady["drops"] == 0
-    for got, exp in zip(steady["delivered"], steady["sent"]):
-        assert got == exp
 
 
 def check_recovery(chaos: dict, n_chans: int, n_msgs: int,
