@@ -164,6 +164,27 @@ order:
    ``selective_gather``, ``policy_match``, ``fused_round``,
    ``paged_attention`` and ``flash_attention`` each launched by the CUDA
    run, nothing by the CPU run.
+14. **audit** (run right after phase 3, on its deployment) -- the port's
+   verifier (``repro_torch.analysis``) on the card. The five passes
+   through ``python -m repro_torch.analysis``'s ``main`` (ownership, the
+   kernel audit on the card, lockset, concurrency, imports): exit 0, no
+   active finding. The kernel registry on the card: every entry one launch
+   of its kernel (``torch.profiler`` events by name and the wrappers'
+   counts), no pool copy and no allocation of the pool's bytes beside the
+   outputs, int32 throughout, its boundary elements as declared and no
+   copy across the boundary, the pool in place; the negative control (a
+   call on a copy of the pool) flagged ``KERN002``.
+   ``kernel_audit.audit_rounds`` of ``fused-round`` plaintext,
+   ``fused-round`` hw-kTLS and ``auto`` plaintext runs: kernel events
+   equal to the wrappers' launches and to the round counters
+   (``fused_round`` = Δ``fused_rounds``; a missed TX speculation's gather
+   its own launch), ``Memcpy`` bytes equal to the ``xfer`` token deltas at
+   int32 plus the int64 row ids ``DevicePool._index`` uploads (and the
+   policy match's operands and verdicts, which no counter counts: waived
+   at their line), the peak allocation below the 128 MiB pool, the pool's
+   ``data_ptr`` stable, no int64 device tensor wider than a round's table.
+   Then ``scripts/check_kernel_parity_torch.py``: its shape sweeps, kernel
+   against plain version bit for bit, each shape through the audit.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -757,6 +778,92 @@ def e2e(size: Size, tls, dev, torch, np, core, kern):
           "msgs": base["msgs"], "rule_hits": base["verdicts"]["rule_hits"],
           "order": [r["impl"] for r in runs], "runs": summary})
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the verifier on the card
+# ---------------------------------------------------------------------------
+
+#: the main path's runs the round audit holds to the counters
+AUDIT_RUNS = (("fused-round", None), ("fused-round", "hw"), ("auto", None))
+#: kernels each audited path must have launched
+AUDIT_LAUNCHED = {"fused-round": ("fused_round",),
+                  "auto": ("selective_copy", "policy_match",
+                           "selective_gather")}
+
+
+def audit(size: Size, dev, torch, np, core):
+    """The port's verifier on phases 2 and 3's deployment: the five passes
+    through ``python -m repro_torch.analysis``'s ``main`` (the kernel
+    audit on the card), the kernel registry on the card with its negative
+    control, ``kernel_audit.audit_rounds`` of three runs, and
+    ``scripts/check_kernel_parity_torch.py``."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import kernel_audit
+    from repro_torch.analysis.__main__ import main as analysis
+
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = analysis([])
+    check(rc == 0, f"audit: python -m repro_torch.analysis failed:\n"
+          f"{text.getvalue()}")
+    out["passes"] = [ln for ln in text.getvalue().splitlines()
+                     if ln and not ln.startswith(" ")]
+    secs["passes"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    findings, seen = kernel_audit.audit_calls(
+        kernel_audit.registry_calls(dev), dev)
+    check(not findings, "audit: kernel registry on the card: "
+          + "; ".join(f.format() for f in findings))
+    control = seen["selective_copy[cloned-pool]"]["rules"]
+    check("KERN002" in control,
+          f"audit: the negative control was not flagged KERN002: {control}")
+    out["registry"] = {name: {k: s[k] for k in (
+        "kernels", "boundary_elems", "peak_scratch_bytes", "widest_int64")}
+        for name, s in seen.items()}
+    out["negative_control_rules"] = control
+    secs["registry"] = time.perf_counter() - t0
+
+    out["rounds"] = {}
+    for impl, tls in AUDIT_RUNS:
+        t0 = time.perf_counter()
+        stack, rt, _table = build_run(size, impl, tls, dev, np, core)
+        stack.pool._ensure_device()
+        torch.cuda.synchronize()
+        r = kernel_audit.audit_rounds(rt)
+        rt.shutdown()
+        tag = f"{impl}/{tls or 'plaintext'}"
+        check(stack.alloc.free_pages == stack.alloc.total_pages,
+              f"audit {tag}: pages leaked after shutdown")
+        check(not r["active"], f"audit {tag}: " + "; ".join(r["active"]))
+        check(r["rounds"] > 0 and r["xfer_delta"]["pool_syncs"] == 0,
+              f"audit {tag}: no rounds, or a pool sync: {r}")
+        for k in AUDIT_LAUNCHED[impl]:
+            check(r["kernel_events"][k] > 0,
+                  f"audit {tag}: {k} never launched: {r['kernel_events']}")
+        out["rounds"][tag] = r
+        secs[tag] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "check_kernel_parity_torch",
+        ROOT / "scripts" / "check_kernel_parity_torch.py")
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = gate.main([])
+    check(rc == 0, f"audit: check_kernel_parity_torch failed:\n"
+          f"{text.getvalue()}")
+    out["kernel_parity"] = text.getvalue().splitlines()
+    secs["kernel_parity"] = time.perf_counter() - t0
+    emit({"phase": "audit", "seconds": secs, **out})
+    return out
 
 
 #: profiler labels of the round assembly, on the traced stack alone
@@ -1645,12 +1752,6 @@ def near_tie_diverged(ss: ServeSize, got: dict, want: dict, margins,
     return diverged
 
 
-#: pause that opens a decode step's profiler window, and the label of the
-#: kernel after it that must be seen (the Standard split)
-WINDOW_PAUSE_S = 0.2
-WINDOW_MARKER_LABEL = "chip_smoke.window_marker"
-
-
 def decode_split(eng, prompts, ss: ServeSize, torch):
     """Profiler split of one decode step of a full batch: device time of
     matmuls, the attention kernel, the KV write and everything else, and
@@ -1658,6 +1759,8 @@ def decode_split(eng, prompts, ss: ServeSize, torch):
     import re
 
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.kernel_audit import WINDOW_PAUSE_S
 
     for p in prompts[:ss.max_batch]:
         eng.submit(p, max_new_tokens=3)
@@ -1812,14 +1915,15 @@ def standard_split(eng, prompts, ss: ServeSize, torch):
     matmuls (by the op that launched each kernel), the host transfers,
     the rest; and the host gaps (wall minus device time; one stream, no
     overlap). Device activity at the very start of a profiler window can be
-    dropped, a warm-up step before it notwithstanding: the window opens on
-    a pause and then a marker kernel under its own label, which must be
-    seen, before the step."""
+    dropped, a warm-up step before it notwithstanding: the window
+    (``kernel_audit.profile_window``) opens on a pause and then a marker
+    kernel under its own label, which must be seen, before the step."""
     import re
 
-    from torch.profiler import (ProfilerActivity, profile, record_function,
-                                schedule)
+    from torch.profiler import record_function
 
+    from repro_torch.analysis.kernel_audit import (WINDOW_MARKER_LABEL,
+                                                   profile_window)
     from repro_torch.models import attention as mattn
 
     for p in prompts[:ss.max_batch]:
@@ -1832,24 +1936,16 @@ def standard_split(eng, prompts, ss: ServeSize, torch):
         with record_function(DENSE_ATTN_LABEL):
             return inner(*args, **kw)
 
+    def decode_step():                         # a decode step, nothing else
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     mattn.dense_attention = labelled
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            eng.step()                         # warm-up decode step
-            torch.cuda.synchronize()
-            prof.step()
-            time.sleep(WINDOW_PAUSE_S)
-            with record_function(WINDOW_MARKER_LABEL):
-                eng.cache.new_ones(1)           # a kernel under an aten op
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.step()                         # a decode step, nothing else
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof.step()
+    try:                                       # warm-up: a decode step
+        prof, wall = profile_window(decode_step, device=eng.cache.device,
+                                    warmup=eng.step)
     finally:
         mattn.dense_attention = inner
     eng.run()
@@ -3091,6 +3187,7 @@ def main() -> int:
     for tls in (None, "hw"):
         runs[tls or "plaintext"] = timed(f"e2e_{tls or 'plaintext'}", e2e,
                                          size, tls, dev, torch, np, core, kern)
+    timed("audit", audit, size, dev, torch, np, core)
     timed("trace", trace, size, dev, torch, np, core)
     timed("cluster", cluster, size, dev, torch, np, core, kern)
     timed("depth", depth, size, dev, torch, np, core, kern)

@@ -1,3 +1,4 @@
+# libra: waive[IMPORT001] loaded by name via repro_torch.configs (importlib), which the static graph cannot see
 """libra-proxy-125m — the paper-scenario model.
 
 A small dense LM standing in for the L7-proxy workload driver: the serving

@@ -1,3 +1,4 @@
+# libra: waive[IMPORT001] loaded by name via repro_torch.configs (importlib), which the static graph cannot see
 """phi3-mini-3.8b [dense] — arXiv:2404.14219.
 
 32L d_model=3072 32H (GQA kv=32, i.e. MHA) d_ff=8192 vocab=32064,

@@ -1,3 +1,4 @@
+# libra: waive[IMPORT001] loaded by name via repro_torch.configs (importlib), which the static graph cannot see
 """phi4-mini-3.8b [dense] — arXiv:2412.08905 / hf.
 
 32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064, RoPE + SwiGLU.

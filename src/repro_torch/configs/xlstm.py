@@ -1,3 +1,4 @@
+# libra: waive[IMPORT001] loaded by name via repro_torch.configs (importlib), which the static graph cannot see
 """xlstm-350m [ssm] — arXiv:2405.04517.
 
 24L d_model=1024 4H (kv=4) d_ff=0 vocab=50304 — sLSTM + mLSTM blocks.

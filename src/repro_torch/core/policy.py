@@ -577,14 +577,18 @@ class PolicyTable:
                 dev = ops.checked_device(device)
 
                 def up(a):
-                    return (None if a is None else torch.from_numpy(
-                        np.ascontiguousarray(a, np.int32)).to(dev))
+                    if a is None:
+                        return None
+                    a = np.ascontiguousarray(a, np.int32)
+                    # libra: waive[KERN004] the match's operands cross uncounted by xfer, as in the reference (ROADMAP.md §3); audit_rounds reckons their bytes
+                    return torch.from_numpy(a).to(dev)
 
                 rids = ops.policy_match(
                     up(metas), up(meta_lens), up(self.cond_off),
                     up(self.cond_lo), up(self.cond_hi), impl=impl,
                     keystream=up(keystreams), live=up(live),
                     payload=up(payload), payload_len=up(payload_lens))
+                # libra: waive[KERN004] the verdicts come down uncounted by xfer, as in the reference (ROADMAP.md §3); audit_rounds reckons their bytes
                 return rids.cpu().numpy().astype(np.int32)
         return self.match_rows(metas, meta_lens, keystreams, live,
                                payload=payload, payload_lens=payload_lens)

@@ -6,8 +6,10 @@ through ``repro.core`` and through the port's ``repro_torch.core``
 (``device="cpu"``) on the same seeds (``tests/_twin.py``): its own
 assertions hold on both sides, and wire bytes, ``CopyCounters``,
 ``cluster.stats``, ``FaultPlan.summary()`` and ``log``, and channel stats
-are identical. The threaded chaos test is twinned below without its
-``LocksetMonitor`` check: the JAX package's ``analysis`` is not ported.
+are identical. The threaded chaos test is twinned below, each side under
+its own package's ``LocksetMonitor`` (``repro.analysis.lockset``,
+``repro_torch.analysis.lockset``), which must see no unlocked
+cross-worker mutation.
 """
 import dataclasses
 import importlib.util
@@ -19,6 +21,8 @@ import _twin
 import repro.core as jcore
 import repro_torch.core as tcore
 from benchmarks import bench_chaos_proxy
+from repro.analysis import lockset as jlockset
+from repro_torch.analysis import lockset as tlockset
 
 PATH = _twin.TESTS / "test_faults.py"
 SCRIPT = _twin.TESTS.parent / "scripts" / "check_failover_recovery_torch.py"
@@ -28,6 +32,7 @@ THREADED = "test_threaded_chaos_conservation_and_clean_lockset"
 STANDARD = "test_standard_chaos_scenario_identity_and_recovery_throughput"
 
 PKGS = {"jax": (jcore, {}), "torch": (tcore, {"device": "cpu"})}
+LOCKSET = {"jax": jlockset, "torch": tlockset}
 #: the port's batch_impl -> the one the JAX side runs on the CPU
 JAX_IMPL = {"ref": "ref", "fused-round:ref": "fused-round:ref",
             "auto": "auto", "fused-round": "fused-round:ref"}
@@ -84,9 +89,9 @@ def _frames_of(wire):
 
 
 def _threaded_chaos(pkg):
-    """The JAX package's threaded chaos test without its lockset check:
-    backend reset at 25 %, worker kill at 50 %, policy hot-swap at 75 % of
-    the epoch budget, driven by real worker threads."""
+    """The JAX package's threaded chaos test, under ``pkg``'s
+    ``LocksetMonitor``: backend reset at 25 %, worker kill at 50 %, policy
+    hot-swap at 75 % of the epoch budget, driven by real worker threads."""
     core, kw = PKGS[pkg]
     epochs = 8
     cl = core.LibraCluster(3, secret=b"chaos", **STACK_KW, **kw)
@@ -113,7 +118,9 @@ def _threaded_chaos(pkg):
         chans.append(crt.channel(src, pair, name=f"ch{i}"))
         dst_pairs.append(pair)
         sent.append(_deliver(core, src, 4, seed=300 + i))
-    _msgs, times = crt.run_parallel(threads=True, epoch_rounds=64)
+    with LOCKSET[pkg].LocksetMonitor(cl) as mon:
+        _msgs, times = crt.run_parallel(threads=True, epoch_rounds=64)
+    assert mon.violations == [], mon.format()
     assert cl.stats["worker_kills"] == 1
     assert all(t.epoch == 1 for t in crt.policies if t is not None)
     assert len(times) == 3 and all(t >= 0 for t in times)
@@ -134,10 +141,10 @@ def _threaded_chaos(pkg):
 
 
 def test_threaded_chaos_conservation_twin():
-    """Conservation, the kill, the swap and zero leaks on both packages,
-    and the same fired events. Which frames arrive may depend on how the
-    threads interleave with the shared health table, so it is held by
-    conservation, not compared."""
+    """Conservation, the kill, the swap, zero leaks and a clean lockset on
+    both packages, and the same fired events. Which frames arrive may
+    depend on how the threads interleave with the shared health table, so
+    it is held by conservation, not compared."""
     j = _threaded_chaos("jax")
     t = _threaded_chaos("torch")
     assert t["log"] == j["log"]
