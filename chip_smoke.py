@@ -6,8 +6,8 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
-``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs, in
-order:
+``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
+the 16 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -42,11 +42,12 @@ order:
    instance under profiler labels, each one's host seconds, share of the
    run's wall and the device time launched under it.
 5. **attn_parity** -- the two attention kernels against their plain
-   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4 (and
-   8 and 12 for paged attention), every head dim the wrappers take (16 to
-   128), ``-1`` table slots, windows, lengths that are no multiple of a
-   tile, pages of two tiles, a table of 70 slots, and the serving shapes of
-   phase 6 (paged attention also at B=1).
+   versions on the card (``atol = rtol = 1e-4``): GQA groups 1 to 4 and 8
+   (and 12 for paged attention), 36 heads of 64, every head dim the
+   wrappers take (16 to 128), ``-1`` table slots, windows, lengths that
+   are no multiple of a tile, pages of two tiles, a table of 70 slots, and
+   the serving shapes of phases 6, 15 and 16 (the prefill of a full wave
+   and a decode step of it; paged attention also at B=1).
 6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
    and depth (3.84 B float32 parameters from a fixed seed on the card): 16
    requests of 1024 tokens (8-token header) in two waves of 8, 32 new
@@ -186,6 +187,39 @@ order:
    Then ``scripts/check_kernel_parity_torch.py``: its shape sweeps, kernel
    against plain version bit for bit, each shape through the audit.
 
+15. **moe_serve** (run right after phase 12, once phases 6 and 12 have
+   freed their parameters) -- ``LibraEngine`` serving
+   ``qwen2-moe-a2.7b`` at full width and depth (24 layers, 60 experts
+   padded to 64, top-4, 4 shared; 15.15 B float32 parameters from a fixed
+   seed, 60.6 GB): 8 requests of 512 tokens (8-token header) in one wave,
+   16 new tokens each; then ``qwen3-moe-30b-a3b`` at full width (128
+   experts, top-8, GQA 32/4, qk-norm) with 12 of its 48 layers (8.1 B
+   parameters, 32.4 GB; the whole model is 122 GB): 4 requests of 512
+   tokens, 8 new. Each once through the kernels (``attn_impl='auto'``)
+   and once through the plain versions (``'ref'``) on the same
+   parameters, freed before the next config. ``EngineStats`` and
+   ``CopyCounters`` identical, every page back, ``flash_attention``
+   launched layers x prefills and ``paged_attention`` layers x decode
+   steps times on the kernel run and never on the plain run, tokens
+   identical under phase 6's near-tie rule or, from the first step at
+   which the plain run's router had a top-k boundary margin (k-th against
+   (k+1)-th probability) below 1e-6 in some layer, excused by it (each
+   case printed with its margin), and the entries dropped past an
+   expert's capacity equal in both runs (``index_add_``'s atomic combine
+   on the card may reorder a row's sum). Prints per run tokens/s, p99,
+   time to first token, ms per decode step, peak device memory, seconds,
+   dropped entries by step, the plain run's router margins by step, and a
+   profiler split of one full-batch decode step: the MoE block's router,
+   dispatch, expert products, combine and shared experts apart from the
+   attention and the head.
+16. **dense_configs** (right after phase 15) -- ``minicpm-2b`` (36 heads
+   of 64, tied head scaled by 1/9, residual branches by 1.4/sqrt(40);
+   10.9 GB) and ``mistral-nemo-12b`` (GQA 32/8, head dim 128, q_dim 4096
+   under d_model 5120; 49.0 GB) at full width and depth, one after the
+   other and freed between: 4 requests of 256 tokens, 8 new, ``auto`` and
+   ``'ref'``, under phase 15's rules but the router's; the split shows
+   the MLP in place of the MoE block.
+
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -226,6 +260,7 @@ SASS opcode mix of its run-shape instantiation.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -335,9 +370,12 @@ SMALL = dict(b=5, page=8, pps=3, meta_max=5)
 
 @dataclasses.dataclass(frozen=True)
 class ServeSize:
-    """The serving run (see PERF.md, Cells): phi4-mini-3.8b at full width
-    and depth, the engine's default page size."""
+    """A serving run (see PERF.md, Cells); the defaults are phase 6's:
+    phi4-mini-3.8b at full width and depth, the engine's default page
+    size."""
     arch: str = "phi4-mini-3.8b"
+    #: layers served; 0 keeps the config's depth
+    layers: int = 0
     seed: int = 0
     requests: int = 16
     max_batch: int = 8
@@ -359,6 +397,32 @@ class ServeSize:
     @property
     def pool_pages(self) -> int:     # LibraEngine: max_batch * pps + 4
         return self.max_batch * self.pps + 4
+
+    def config(self):
+        """The arch's published config, its depth cut to ``layers``."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(self.arch)
+        return (dataclasses.replace(cfg, num_layers=self.layers)
+                if self.layers else cfg)
+
+
+#: phase 15: the moe family. qwen2-moe-a2.7b at full width and depth;
+#: qwen3-moe-30b-a3b at full width, 12 of its 48 layers (the whole model
+#: is 122 GB in float32, more than one card holds)
+MOE_RUNS = (ServeSize(arch="qwen2-moe-a2.7b", requests=8, max_batch=8,
+                      prompt=512, gen=16, timing_context=520),
+            ServeSize(arch="qwen3-moe-30b-a3b", layers=12, requests=4,
+                      max_batch=4, prompt=512, gen=8, timing_context=516))
+#: phase 16: the dense configs left, at full width and depth
+DENSE_RUNS = (ServeSize(arch="minicpm-2b", requests=4, max_batch=4,
+                        prompt=256, gen=8, timing_context=260),
+              ServeSize(arch="mistral-nemo-12b", requests=4, max_batch=4,
+                        prompt=256, gen=8, timing_context=260))
+#: the router's top-k boundary margin (k-th against (k+1)-th probability)
+#: below which the plain run's routing may flip under float32 rounding:
+#: from the first step where it falls below, a differing token is excused
+ROUTER_MARGIN = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1537,9 +1601,11 @@ def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd):
 ATTN_KERNELS = ("paged_attention", "flash_attention")
 
 
-def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
+def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS,
+                served=()):
     """The attention ``kernels`` against their plain versions on the
-    card."""
+    card; also at the prefill and decode shapes of each ``(ServeSize,
+    config)`` of ``served``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     results = []
@@ -1571,7 +1637,15 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
               True, 130),
              ("g4-hd32-noncausal-window", dict(b=1, hq=8, hkv=2, s=270,
                                                hd=32), False, 75),
+             ("g8-hd128-tail", dict(b=1, hq=32, hkv=4, s=200, hd=128), True,
+              0),
+             ("h36-hd64-tail", dict(b=1, hq=36, hkv=36, s=130, hd=64), True,
+              0),
              ("serve", full, True, 0)]
+    flash += [(f"serve/{s.arch}", dict(b=s.max_batch, hq=c.num_heads,
+                                       hkv=c.num_kv_heads, s=s.prompt,
+                                       hd=c.head_dim), True, 0)
+              for s, c in served]
     if "flash_attention" not in kernels:
         flash = []
     for label, shape, causal, window in flash:
@@ -1611,10 +1685,12 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS):
             outs = [ops.paged_attention(*case, window=window, impl=impl)
                     for impl in ("cuda", "ref")]
             record("paged_attention", label, outs[0], outs[1])
-        case = serve_paged_case(ss, cfg, gen, dev, torch)
-        outs = [ops.paged_attention(*case, impl=impl)
-                for impl in ("cuda", "ref")]
-        record("paged_attention", "serve", outs[0], outs[1])
+        for label, s, c in [("serve", ss, cfg)] + [
+                (f"serve/{s.arch}", s, c) for s, c in served]:
+            case = serve_paged_case(s, c, gen, dev, torch)
+            outs = [ops.paged_attention(*case, impl=impl)
+                    for impl in ("cuda", "ref")]
+            record("paged_attention", label, outs[0], outs[1])
     emit({"phase": "attn_parity", "cases": len(results),
           "all_close": all(r["close"] for r in results), "tol": ATTN_TOL,
           "max_abs_err": {k: max(r["max_abs_err"] for r in results
@@ -1670,8 +1746,9 @@ class LogitMargins:
 
 
 def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
-              margins=None):
-    """One engine run over ``prompts``; returns (engine, results)."""
+              margins=None, watch=None):
+    """One engine run over ``prompts``; returns (engine, results).
+    ``watch`` (a :class:`RouterWatch`) is told where each step ends."""
     from repro_torch.core.parser import TokenStreamParser
     from repro_torch.serving.engine import LibraEngine
 
@@ -1696,6 +1773,8 @@ def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
             margins.step(eng, reqs)
         step_s["prefill" if eng.stats.prefills > prefills else "decode"
                ].append(time.perf_counter() - ts)
+        if watch is not None:
+            watch.mark(margins)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kattn.LAUNCHES)
@@ -1730,11 +1809,15 @@ def run_summary(eng, reqs, dt, step_s, launches, torch) -> dict:
 
 
 def near_tie_diverged(ss: ServeSize, got: dict, want: dict, margins,
-                      label: str) -> list:
+                      label: str, routing=None) -> list:
     """The first token where each request of ``got`` leaves ``want``;
     fails unless the plain Libra run's top-2 logit margin there is below
-    1e-3 of the logits' spread (a float32 near-tie)."""
+    1e-3 of the logits' spread (a float32 near-tie) or, for a moe run,
+    ``routing`` (a :class:`RouterWatch` of the plain run) excuses it: the
+    token came from the step at which the plain run's router first had a
+    top-k boundary margin below ``ROUTER_MARGIN``, or a later one."""
     diverged = []
+    flip = routing.first_low_margin() if routing is not None else None
     for rid, w in want.items():
         g = got[rid]
         check(len(g) == len(w) == ss.gen,
@@ -1744,11 +1827,21 @@ def near_tie_diverged(ss: ServeSize, got: dict, want: dict, margins,
         if first is None:
             continue
         m, spread = margins.margin(rid, first)
-        diverged.append(dict(rid=rid, token=first, margin=m, spread=spread))
-        check(m < 1e-3 * spread,
+        case = dict(rid=rid, token=first, margin=m, spread=spread)
+        diverged.append(case)
+        if m < 1e-3 * spread:
+            case["excused_by"] = "logit near-tie"
+            continue
+        call, _row = margins.where[(rid, first)]
+        check(flip is not None and call >= flip["logits_call"],
               f"{label}: request {rid} token {first}: {g[first]} vs "
               f"{w[first]}, plain top-2 margin {m} is not below 1e-3 of "
-              f"the spread {spread}")
+              f"the spread {spread}"
+              + ("" if routing is None else
+                 f", and no router margin below {ROUTER_MARGIN} came at or "
+                 f"before its step (first: {flip})"))
+        case.update(excused_by="router margin", router_step=flip["step"],
+                    router_margin=flip["margin"])
     return diverged
 
 
@@ -2068,6 +2161,290 @@ def baselines(ss: ServeSize, state: dict, dev, torch, np, kattn):
           "libra": {k: libra[k] for k in keep},
           "standard_decode_step_split": split})
     return runs
+
+# ---------------------------------------------------------------------------
+# phases 15-16: the moe family, and the dense configs left
+# ---------------------------------------------------------------------------
+
+class RouterWatch:
+    """What the MoE layers of one engine run do, kept on the card until
+    the run ends: the entries each ``moe.dispatch_plan`` call drops past
+    an expert's capacity and, with ``margins``, each router call's least
+    top-k boundary margin over its rows (the k-th against the (k+1)-th
+    probability). :meth:`mark` notes where each engine step ends."""
+
+    def __init__(self, margins: bool):
+        self.with_margins = margins
+        self.drops, self.margins = [], []
+        self.ends = []     # per step: (router calls, drop calls, logits calls)
+        self._saved = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        router, plan = moe.router_topk, moe.dispatch_plan
+        self._saved = (moe, router, plan)
+
+        def router_topk(logits, cfg):
+            if self.with_margins:
+                probs = logits.float().clone()
+                probs[:, cfg.num_experts:] = -1e30     # as router_topk masks
+                top = probs.softmax(-1).topk(cfg.top_k + 1, dim=-1).values
+                self.margins.append((top[:, -2] - top[:, -1]).min())
+            return router(logits, cfg)
+
+        def dispatch_plan(ids, cfg, cap, e_first, e_count):
+            out = plan(ids, cfg, cap, e_first, e_count)
+            self.drops.append((~out.kept).sum())
+            return out
+
+        moe.router_topk, moe.dispatch_plan = router_topk, dispatch_plan
+        return self
+
+    def __exit__(self, *exc):
+        moe, router, plan = self._saved
+        moe.router_topk, moe.dispatch_plan = router, plan
+        self.drops = [int(d) for d in self.drops]         # the run is over
+        self.margins = [float(m) for m in self.margins]
+
+    def mark(self, logit_margins) -> None:
+        self.ends.append((len(self.margins), len(self.drops),
+                          len(logit_margins.calls) if logit_margins else 0))
+
+    def _per_step(self, values, col, reduce):
+        out, start = [], 0
+        for end in self.ends:
+            out.append(reduce(values[start:end[col]]) if end[col] > start
+                       else None)
+            start = end[col]
+        return out
+
+    def drops_by_step(self) -> list:
+        return self._per_step(self.drops, 1, sum)
+
+    def margin_by_step(self) -> list:
+        return self._per_step(self.margins, 0, min)
+
+    def first_low_margin(self):
+        """The first router call whose least margin is below
+        ``ROUTER_MARGIN`` (one call a MoE layer, in order): its index, its
+        step, its place in the step, the margin, and the step's first
+        logits call."""
+        call = next((i for i, m in enumerate(self.margins)
+                     if m < ROUTER_MARGIN), None)
+        if call is None:
+            return None
+        step = next(i for i, end in enumerate(self.ends) if end[0] > call)
+        start = self.ends[step - 1] if step else (0, 0, 0)
+        return dict(call=call, step=step, call_in_step=call - start[0],
+                    margin=self.margins[call], logits_call=start[2])
+
+
+#: profiler labels of a decode step's parts, innermost first (a device
+#: event goes to the first label whose host range holds its launch):
+#: (label, module, function)
+SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "router_topk"),
+               ("moe.dispatch", "repro_torch.models.moe", "dispatch_plan"),
+               ("moe.dispatch", "repro_torch.models.moe", "dispatch"),
+               ("moe.experts", "repro_torch.models.moe", "expert_ffn"),
+               ("moe.combine", "repro_torch.models.moe", "combine"),
+               ("moe.shared", "repro_torch.models.moe", "_shared_expert"),
+               ("moe.rest", "repro_torch.models.moe", "moe_ffn"),
+               ("mlp", "repro_torch.models.transformer", "mlp_apply"),
+               ("attention", "repro_torch.models.attention",
+                "paged_decode_attention"))
+
+
+def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
+    """Profiler split of one full-batch decode step by part: the MoE
+    block's router (softmax and top-k), dispatch (sort, positions, the
+    buffer), expert products, combine, shared experts and the rest of it
+    (the router's product, the sum), or the dense MLP; the attention (KV
+    write and paged attention); the head; everything else (embedding,
+    norms, projections). Device time from the window's trace, each event
+    under the label whose host range holds its launch
+    (``kernel_audit.device_events_by_label``)."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    from repro_torch.analysis import kernel_audit as ka
+
+    for p in prompts[:ss.max_batch]:
+        eng.submit(p, max_new_tokens=4)
+    eng.step()                                 # prefill + first decode
+    torch.cuda.synchronize()
+    targets = [(importlib.import_module(mod), fn, label)
+               for label, mod, fn in SPLIT_PARTS]
+    targets.append((eng.model, "logits", "head"))
+    saved = [getattr(obj, fn) for obj, fn, _label in targets]
+
+    def labelled(inner, label):
+        def call(*args, **kw):
+            with record_function(label):
+                return inner(*args, **kw)
+        return call
+
+    def decode_step():                         # a decode step, nothing else
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for (obj, fn, label), inner in zip(targets, saved):
+        setattr(obj, fn, labelled(inner, label))
+    try:
+        prof, wall = ka.profile_window(decode_step, device=eng.pool.pool.device,
+                                       warmup=eng.step)
+    finally:
+        for (obj, fn, _label), inner in zip(targets, saved):
+            setattr(obj, fn, inner)
+    eng.run()
+    labels = list(dict.fromkeys(label for _o, _f, label in targets))
+    events = ka.trace_events(prof)
+    by_label = ka.device_events_by_label(events,
+                                         labels + [ka.WINDOW_MARKER_LABEL])
+    check(ka.kernel_names(by_label[ka.WINDOW_MARKER_LABEL]),
+          "the profiler's window lost its marker kernel: the split cannot be "
+          "trusted to hold the whole step")
+    marker = {id(e) for e in by_label[ka.WINDOW_MARKER_LABEL]}
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ka.DEVICE_CATS and id(e) not in marker]
+    device_ms = sum(float(e.get("dur", 0)) for e in device) / 1e3
+    split = {lab: sum(float(e.get("dur", 0)) for e in by_label[lab]) / 1e3
+             for lab in labels}
+    split["other"] = device_ms - sum(split.values())
+    moe = eng.model.cfg.family == "moe"
+    split = {k: v for k, v in split.items()       # the other family's FFN
+             if not k.startswith("mlp" if moe else "moe.")}
+    top = {}
+    for e in device:
+        top[e["name"][:70]] = top.get(e["name"][:70], 0.0) + \
+            float(e.get("dur", 0)) / 1e3
+    out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+           "host_gap_ms": wall * 1e3 - device_ms,
+           "device_busy_share": device_ms / (wall * 1e3),
+           "device_ms_by_part": split,
+           "top_device_ms": dict(sorted(top.items(),
+                                        key=lambda kv: -kv[1])[:10])}
+    if moe:
+        out["moe_ms"] = sum(v for k, v in split.items()
+                            if k.startswith("moe."))
+        out["moe_share_of_device"] = out["moe_ms"] / device_ms
+    check(split["attention"] > 0 and split["head"] > 0 and
+          split["moe.experts" if moe else "mlp"] > 0,
+          f"the profiled step shows no attention, head or FFN: {out}")
+    return out
+
+
+def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
+    """Each of ``runs`` in turn under LibraEngine, once through the kernels
+    (``attn_impl='auto'``) and once through their plain versions
+    (``'ref'``) on the same parameters (a fixed seed), freed before the
+    next: stats, counters and pages as in phase 6, tokens under its
+    near-tie rule (a moe run also under the router-margin rule), the
+    kernels launched once a layer a prefill and a decode step, the moe
+    runs' dropped entries equal. Prints one line for the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.registry import build_model
+
+    out = {}
+    for ss in runs:
+        cfg = ss.config()
+        moe = cfg.family == "moe"
+        models = {impl: build_model(cfg, page_size=ss.page, attn_impl=impl)
+                  for impl in ("auto", "ref")}
+        t0 = time.perf_counter()
+        params = models["auto"].init_params(ss.seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(ss.seed)
+        prompts = [rng.integers(1, cfg.vocab_size - 1, ss.prompt)
+                   for _ in range(ss.requests)]
+        margins = LogitMargins(models["ref"])
+        res, watches = {}, {}
+        for impl in ("auto", "ref"):
+            with (RouterWatch(margins=impl == "ref") if moe
+                  else contextlib.nullcontext()) as watch:
+                eng, run = serve_run(ss, models[impl], params, prompts, dev,
+                                     torch, kattn,
+                                     margins if impl == "ref" else None,
+                                     watch)
+            run["decode_step_split"] = parts_decode_split(eng, prompts, ss,
+                                                          torch)
+            del eng
+            res[impl], watches[impl] = run, watch
+        kern, ref = res["auto"], res["ref"]
+        tag = f"{phase} {ss.arch}"
+        check(kern["stats"] == ref["stats"],
+              f"{tag}: EngineStats differ between the kernel and plain runs")
+        check(kern["counters"] == ref["counters"],
+              f"{tag}: CopyCounters differ between the kernel and plain runs")
+        st = kern["stats"]
+        want = {"flash_attention": cfg.num_layers * st["prefills"],
+                "paged_attention": cfg.num_layers * st["steps"]}
+        check(kern["launches"] == want,
+              f"{tag}: kernel launches {kern['launches']}, not {want}")
+        check(not any(ref["launches"].values()),
+              f"{tag}: a kernel launched in the plain run: {ref['launches']}")
+        diverged = near_tie_diverged(ss, kern["outputs"], ref["outputs"],
+                                     margins, f"{tag} kernel vs plain",
+                                     watches["ref"])
+        entry = {"layers": cfg.num_layers, "params": cfg.param_count(),
+                 "param_gb": cfg.param_count() * 4 / 1e9,
+                 "param_init_s": init_s, "requests": ss.requests,
+                 "prompt": ss.prompt, "gen": ss.gen,
+                 "max_batch": ss.max_batch, "page": ss.page,
+                 "pool_pages": ss.pool_pages,
+                 "identical_tokens": not diverged, "diverged": diverged,
+                 "stats": st, "counters": kern["counters"]}
+        if ss.layers:
+            entry["reduced"] = {"num_layers": [
+                ss.layers, get_config(ss.arch).num_layers]}
+        if moe:
+            drops = {impl: w.drops_by_step() for impl, w in watches.items()}
+            totals = {impl: sum(w.drops) for impl, w in watches.items()}
+            # the same entries dropped, call for call, up to the first call
+            # at which the plain run's routing may flip
+            calls = (watches["auto"].drops, watches["ref"].drops)
+            check(len(calls[0]) == len(calls[1]),
+                  f"{tag}: {len(calls[0])} and {len(calls[1])} MoE calls")
+            differ = next((i for i, (a, b) in enumerate(zip(*calls))
+                           if a != b), None)
+            low = watches["ref"].first_low_margin()
+            differs = None if differ is None else dict(
+                call=differ, auto=calls[0][differ], ref=calls[1][differ],
+                plain_margin=watches["ref"].margins[differ])
+            check(differ is None or (low is not None and low["call"] <= differ),
+                  f"{tag}: dropped entries differ at MoE call {differs} with "
+                  f"no plain router margin below {ROUTER_MARGIN} at or "
+                  f"before it (first: {low}); totals {totals}")
+            entry["moe"] = {
+                "experts": cfg.num_experts,
+                "padded_experts": cfg.padded_experts, "top_k": cfg.top_k,
+                "shared_experts": cfg.num_shared_experts,
+                "prefill_rows": ss.max_batch * ss.prompt,
+                "prefill_capacity": expert_capacity(
+                    ss.max_batch * ss.prompt, cfg, 2.0),
+                "dropped_entries": totals,
+                "drops_differ_from": differs,
+                "dropped_by_step": drops,
+                "router_margin_by_step": watches["ref"].margin_by_step(),
+                "first_router_margin_below": watches["ref"].first_low_margin()}
+        keep = ("seconds", "tokens", "tokens_per_s", "p99_latency_ms",
+                "ttft_s", "peak_mem_gb", "prefill_step_s", "decode_step_ms",
+                "launches", "steps", "decode_step_split")
+        entry["kernels"] = {k: kern[k] for k in keep}
+        entry["plain"] = {k: ref[k] for k in keep}
+        out[ss.arch] = entry
+        del models, params, margins, watches
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": phase, "card": card_line(torch), "runs": out})
+    return out
+
+
 
 # ---------------------------------------------------------------------------
 # phases 7-8: mLSTM parity and the xLSTM run
@@ -3195,13 +3572,20 @@ def main() -> int:
                            kmlstm)
     ss = ServeSize()
     cfg = get_config(ss.arch)
-    apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops)
+    served = [(s, s.config()) for s in MOE_RUNS + DENSE_RUNS]
+    apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops,
+                 ATTN_KERNELS, served)
     srv_state = timed("serve", serve, ss, dev, torch, np, kattn)
     srv = srv_state["libra"]
     base = timed("baselines", baselines, ss, srv_state, dev, torch, np,
                  kattn)
-    del srv_state
+    del srv_state                   # phase 15 needs 64 GB of the card
+    gc.collect()
     torch.cuda.empty_cache()
+    cfg_runs = {phase: timed(phase, config_runs, phase, runs, dev, torch, np,
+                             kattn)
+                for phase, runs in (("moe_serve", MOE_RUNS),
+                                    ("dense_configs", DENSE_RUNS))}
     xs = XlstmSize()
     mpar = timed("mlstm_parity", mlstm_parity, xs, get_config(xs.arch), dev,
                  torch, ops)
@@ -3228,6 +3612,10 @@ def main() -> int:
         extra = ({"baseline_launches": {n: r["launches"][name]
                                         for n, r in base.items()}}
                  if name == "flash_attention" else {})
+        if name in ATTN_KERNELS:
+            extra["config_launches"] = {
+                arch: r["kernels"]["launches"][name]
+                for runs in cfg_runs.values() for arch, r in runs.items()}
         extra["bench_launches"] = bench_launches[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -2,10 +2,10 @@
 
 The same modules as the JAX package's ``repro.configs``, copied: each exports
 ``CONFIG`` (the published configuration) and ``reduced()`` (a small
-same-family config for CPU tests). Here are the dense configs that
-``LibraEngine`` serves and the ``ssm`` config xlstm-350m, which
+same-family config for CPU tests). Here are the dense and ``moe`` configs
+that the serving engines serve and the ``ssm`` config xlstm-350m, which
 ``XLSTMModel`` runs; the other architectures wait for their model families
-(``ROADMAP.md``, queue 1, items 5 and 7).
+(``ROADMAP.md``, queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -17,15 +17,18 @@ from repro_torch.common.types import ModelConfig
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini",
+    "minicpm-2b": "repro_torch.configs.minicpm",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo",
     "xlstm-350m": "repro_torch.configs.xlstm",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe",
     # the paper's own scenario: a tiny router/proxy LM used by the serving
     # examples and benchmarks (not part of the 10-arch assignment)
     "libra-proxy-125m": "repro_torch.configs.libra_proxy",
 }
 
 #: architectures of the JAX package whose model family is not ported yet
-NOT_PORTED = ("minicpm-2b", "mistral-nemo-12b", "hymba-1.5b", "whisper-medium",
-              "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "internvl2-76b")
+NOT_PORTED = ("hymba-1.5b", "whisper-medium", "internvl2-76b")
 
 ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 
@@ -33,7 +36,7 @@ ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP.md, queue 1, items 5 and 7)")
+            f"{name!r} is not ported yet (ROADMAP.md, queue 1, item 7)")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])

@@ -6,14 +6,16 @@ package's ``repro.launch.serve`` prints them.
   PYTHONPATH=src python -m repro_torch.launch.serve --engine standard \
       --device cpu
   python -m repro_torch.launch.serve --no-reduced --arch phi4-mini-3.8b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --device cpu
 
 ``--engine`` is ``libra`` (the default), ``standard``, ``copier`` or
 ``static``; ``static`` sizes its batch from a 256 MiB memory budget, as the
 JAX launcher does, and ignores ``--batch``. ``--reduced`` (the default)
 serves the config's small same-family variant; ``--no-reduced`` serves the
 published one. ``--device`` is ``cuda`` by default and raises without a
-GPU. The engines serve the dense family only: xlstm-350m has no KV cache,
-and the JAX launcher fails on it too.
+GPU. The engines serve the dense and ``moe`` families: xlstm-350m has no
+KV cache, and the JAX launcher fails on it too.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="libra-proxy-125m",
                     choices=[a for a in ARCHS + ["libra-proxy-125m"]
-                             if get_config(a).family == "dense"])
+                             if get_config(a).family in ("dense", "moe")])
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--engine", default="libra", choices=list(ENGINES))

@@ -1,0 +1,178 @@
+"""Mixture-of-Experts FFN with sort-based capacity dispatch.
+
+PyTorch twin of the JAX package's ``repro.models.moe`` on one device:
+tokens are sorted by expert id and gathered into a capacity-bounded
+``[E, C, D]`` buffer, the per-expert FFN is one batched product a weight
+(``torch.bmm``; plain XLA dots in the reference, no Pallas kernel), and
+the combine is a scatter-add weighted by the router gates. Tokens past an
+expert's capacity pass through the residual. Which tokens are dropped
+follows the reference exactly: a stable sort, ``searchsorted`` from the
+left, the capacity counted over every row passed in (padding included).
+
+The combine is ``index_add_``: on a CUDA tensor its additions are atomic,
+so their order, and the last bits of a row summed from several experts,
+may differ between two runs on the same inputs.
+
+The reference's expert-parallel path (``shard_map`` over a ``'model'``
+mesh axis, ``repro/models/moe.py`` l.148-207) needs a device mesh, which
+the port does not have yet (``ROADMAP.md``, queue 1, item 9);
+``_dispatch_compute_combine`` already takes the expert range that path
+hands each device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.types import ModelConfig
+from repro_torch.models.layers import ParamSpec
+
+
+def moe_template(cfg: ModelConfig) -> Dict:
+    e = cfg.padded_experts
+    t: Dict = {
+        "router": ParamSpec((cfg.d_model, e), (None, None)),
+        "w_gate": ParamSpec((e, cfg.d_model, cfg.expert_d_ff),
+                            ("expert", "fsdp", "tensor")),
+        "w_up": ParamSpec((e, cfg.d_model, cfg.expert_d_ff),
+                          ("expert", "fsdp", "tensor")),
+        "w_down": ParamSpec((e, cfg.expert_d_ff, cfg.d_model),
+                            ("expert", "tensor", "fsdp")),
+    }
+    if cfg.num_shared_experts:
+        sf = cfg.num_shared_experts * cfg.expert_d_ff
+        t["shared_gate"] = ParamSpec((cfg.d_model, sf), ("fsdp", "tensor"))
+        t["shared_up"] = ParamSpec((cfg.d_model, sf), ("fsdp", "tensor"))
+        t["shared_down"] = ParamSpec((sf, cfg.d_model), ("tensor", "fsdp"))
+        t["shared_gate_proj"] = ParamSpec((cfg.d_model, 1), ("fsdp", None))
+    return t
+
+
+def router_topk(logits: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[T, E_padded] -> (gates [T, k], expert_ids [T, k]). Padded experts
+    are masked out before top-k so they can never be selected."""
+    if cfg.padded_experts > cfg.num_experts:
+        pad = torch.arange(cfg.padded_experts,
+                           device=logits.device) >= cfg.num_experts
+        logits = logits.masked_fill(pad, -1e30)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return gates, ids
+
+
+def aux_load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss."""
+    e = cfg.num_experts
+    probs = torch.softmax(logits.float(), dim=-1)[..., :e]
+    me = probs.mean(dim=0)
+    one_hot = F.one_hot(ids.long(), cfg.padded_experts).float()[..., :e]
+    ce = one_hot.sum(dim=1).mean(dim=0) / cfg.top_k
+    return e * (me * ce).sum()
+
+
+def expert_capacity(t: int, cfg: ModelConfig, capacity_factor: float) -> int:
+    """Slots an expert has for ``t`` rows: at least 8, at most ``t``."""
+    cap = max(8, int(math.ceil(t * cfg.top_k / cfg.padded_experts
+                               * capacity_factor)))
+    return min(cap, t)
+
+
+class DispatchPlan(NamedTuple):
+    """Where each of the ``T*k`` (token, choice) entries goes, in expert
+    order: ``order`` sorts the flat choices, ``token_idx`` is each sorted
+    entry's token, ``kept`` whether it has a slot among this call's
+    experts, ``dst`` its row of the ``[e_count * cap]`` buffer
+    (``e_count * cap``, one past the end, where it has none)."""
+    order: torch.Tensor
+    token_idx: torch.Tensor
+    kept: torch.Tensor
+    dst: torch.Tensor
+
+
+def dispatch_plan(ids: torch.Tensor, cfg: ModelConfig, cap: int,
+                  e_first: int, e_count: int) -> DispatchPlan:
+    k = cfg.top_k
+    flat_e = ids.reshape(-1)                       # [T*k] global expert ids
+    n = flat_e.numel()
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    first = torch.searchsorted(
+        se, torch.arange(cfg.padded_experts, device=se.device,
+                         dtype=se.dtype), right=False)
+    pos = torch.arange(n, device=se.device) - first[se]   # within its expert
+    local_e = se - e_first
+    kept = (local_e >= 0) & (local_e < e_count) & (pos < cap)
+    dst = torch.where(kept, local_e * cap + pos,
+                      torch.full_like(pos, e_count * cap))
+    return DispatchPlan(order, order // k, kept, dst)
+
+
+def dispatch(x: torch.Tensor, plan: DispatchPlan, cap: int,
+             e_count: int) -> torch.Tensor:
+    """The ``[e_count, cap, D]`` buffer of kept tokens, zero elsewhere.
+    Dropped entries land in one extra row past the end, which is cut off
+    (the reference's ``.at[dst].set(..., mode="drop")``)."""
+    buf = x.new_zeros((e_count * cap + 1, x.shape[1]))
+    buf[plan.dst] = x[plan.token_idx]
+    return buf[:-1].view(e_count, cap, x.shape[1])
+
+
+def expert_ffn(buf: torch.Tensor, p_gate: torch.Tensor, p_up: torch.Tensor,
+               p_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its slots: ``[E, C, D] -> [E, C, D]``."""
+    h = F.silu(torch.bmm(buf, p_gate)) * torch.bmm(buf, p_up)
+    return torch.bmm(h, p_down)
+
+
+def combine(out_e: torch.Tensor, gates: torch.Tensor, plan: DispatchPlan,
+            t: int) -> torch.Tensor:
+    """Each kept entry's expert output, weighted by its gate, added into
+    its token's row: ``[T, D]``."""
+    d = out_e.shape[-1]
+    flat = out_e.reshape(-1, d)
+    contrib = torch.where(plan.kept[:, None],
+                          flat[plan.dst.clamp(0, flat.shape[0] - 1)], 0.0)
+    gate_per = gates.reshape(-1)[plan.order][:, None].to(out_e.dtype)
+    return out_e.new_zeros((t, d)).index_add_(0, plan.token_idx,
+                                              contrib * gate_per)
+
+
+def _dispatch_compute_combine(x, p_gate, p_up, p_down, gates, ids, cfg,
+                              capacity_factor: float, e_first: int,
+                              e_count: int) -> torch.Tensor:
+    """Sort-based dispatch for experts [e_first, e_first+e_count) over local
+    tokens x [T, D]; returns the weighted combined output [T, D]."""
+    t = x.shape[0]
+    cap = expert_capacity(t, cfg, capacity_factor)
+    plan = dispatch_plan(ids, cfg, cap, e_first, e_count)
+    out_e = expert_ffn(dispatch(x, plan, cap, e_count), p_gate, p_up, p_down)
+    return combine(out_e, gates, plan, t)
+
+
+def _shared_expert(p, x: torch.Tensor) -> torch.Tensor:
+    sh = F.silu(x @ p["shared_gate"]) * (x @ p["shared_up"])
+    sg = torch.sigmoid(x @ p["shared_gate_proj"])
+    return sg * (sh @ p["shared_down"])
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+            capacity_factor: float = 1.25, return_aux: bool = False):
+    """x [T, D] -> [T, D] (and the auxiliary loss with ``return_aux``):
+    the reference's one-device path, every expert local. The serving
+    paths pass ``capacity_factor=2.0``; 1.25 is training's."""
+    logits = x @ p["router"]
+    gates, ids = router_topk(logits, cfg)
+    out = _dispatch_compute_combine(x, p["w_gate"], p["w_up"], p["w_down"],
+                                    gates, ids, cfg, capacity_factor, 0,
+                                    cfg.padded_experts)
+    if cfg.num_shared_experts:
+        out = out + _shared_expert(p, x)
+    if return_aux:
+        return out, aux_load_balance_loss(logits, ids, cfg)
+    return out

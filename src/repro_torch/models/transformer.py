@@ -1,21 +1,24 @@
-"""Decoder-only LM of the dense family, serving path.
+"""Decoder-only LM of the dense and ``moe`` families, serving path.
 
 PyTorch twin of the JAX package's ``repro.models.transformer.TransformerLM``
-for ``family == "dense"`` (phi3, phi4, the libra-proxy model). Serving
-follows the Libra datapath: ``prefill`` anchors KV into pool pages in place
-(ingress) and attends through ``ops.flash_attention``; ``decode_step`` reads
-the pages via block-table metadata through ``ops.paged_attention`` and
-returns *only sampled token ids*. The standard-stack baseline of the other
-engines is ``prefill_dense`` (the prompt's KV as a contiguous cache, its
-attention through ``ops.flash_attention`` too) and ``decode_step_dense``
-(the whole cache rewritten every step unless donated, full logits out).
-Parameters are the JAX package's nested dict, layers stacked on a leading
-axis; the large products stay ``torch.matmul``, as they are plain XLA dots
-there. Layers run in a Python loop (the JAX package scans them).
-Computation is float32.
+for ``family == "dense"`` (phi3, phi4, minicpm, mistral-nemo, the
+libra-proxy model) and ``family == "moe"`` (qwen2-moe, qwen3-moe: the FFN
+is ``models/moe.moe_ffn``, one call a layer over all ``B*S`` rows, padded
+positions included, at the serving paths' ``capacity_factor=2.0``).
+Serving follows the Libra datapath: ``prefill`` anchors KV into pool pages
+in place (ingress) and attends through ``ops.flash_attention``;
+``decode_step`` reads the pages via block-table metadata through
+``ops.paged_attention`` and returns *only sampled token ids*. The
+standard-stack baseline of the other engines is ``prefill_dense`` (the
+prompt's KV as a contiguous cache, its attention through
+``ops.flash_attention`` too) and ``decode_step_dense`` (the whole cache
+rewritten every step unless donated, full logits out). Parameters are the
+JAX package's nested dict, layers stacked on a leading axis; the large
+products stay ``torch.matmul``, as they are plain XLA dots there. Layers
+run in a Python loop (the JAX package scans them). Computation is float32.
 
-The ``moe``, ``hybrid`` and ``vlm`` families and training are not ported
-yet (``ROADMAP.md``, queue 1, items 7 and 8).
+The ``hybrid``, ``vlm`` and ``encdec`` families and training are not
+ported yet (``ROADMAP.md``, queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     ParamSpec,
     apply_rope,
@@ -37,7 +41,7 @@ from repro_torch.models.layers import (
     tree_map,
 )
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def stack_template(tmpl: Dict, n: int) -> Dict:
@@ -85,7 +89,10 @@ class TransformerLM:
         if c.qk_norm:
             t["q_norm"] = ParamSpec((c.head_dim,), (None,), init="zeros")
             t["k_norm"] = ParamSpec((c.head_dim,), (None,), init="zeros")
-        t["mlp"] = mlp_template(c.d_model, c.d_ff, c.act)
+        if c.family == "moe":
+            t["moe"] = moe_lib.moe_template(c)
+        else:
+            t["mlp"] = mlp_template(c.d_model, c.d_ff, c.act)
         return t
 
     def template(self) -> Dict:
@@ -153,9 +160,17 @@ class TransformerLM:
                 apply_rope(k, positions, c.rope_theta), v)
 
     def _mlp_residual(self, lp, x: torch.Tensor) -> torch.Tensor:
+        """The FFN block over x [..., D]. A ``moe`` layer routes all of
+        x's rows in one call, as every serving path of the reference does
+        (capacity is per call, so the rows decide each other's drops)."""
         c = self.cfg
         h2 = rms_norm(x, lp["ln2"], c.norm_eps)
-        return x + mlp_apply(lp["mlp"], h2, c.act) * c.residual_scale
+        if c.family == "moe":
+            out = moe_lib.moe_ffn(lp["moe"], h2.reshape(-1, c.d_model), c,
+                                  capacity_factor=2.0).reshape(x.shape)
+        else:
+            out = mlp_apply(lp["mlp"], h2, c.act)
+        return x + out * c.residual_scale
 
     # ------------------------------------------------------------------
     # serving: Libra fast path (paged, anchored)
