@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
-the 16 phases below, in order but where a phase says when it runs:
+the 17 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -46,8 +46,10 @@ the 16 phases below, in order but where a phase says when it runs:
    (and 12 for paged attention), 36 heads of 64, every head dim the
    wrappers take (16 to 128), ``-1`` table slots, windows, lengths that
    are no multiple of a tile, pages of two tiles, a table of 70 slots, and
-   the serving shapes of phases 6, 15 and 16 (the prefill of a full wave
-   and a decode step of it; paged attention also at B=1).
+   the serving shapes of phases 6, 15, 16 and 17 (the prefill of a full
+   wave and a decode step of it; paged attention also at B=1); hymba's
+   (phase 17: 25 query heads over 5 KV heads of 64) both global and over
+   its window of 1024, as its layers attend.
 6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
    and depth (3.84 B float32 parameters from a fixed seed on the card): 16
    requests of 1024 tokens (8-token header) in two waves of 8, 32 new
@@ -89,7 +91,10 @@ the 16 phases below, in order but where a phase says when it runs:
    and its operations over the card's peak for their type (int32 for the
    datapath, float32 FMA for paged attention; for flash attention and the
    mLSTM scan three TF32 tensor-core products per float32 product, with
-   the float32-FMA bound beside it as ``fp32_fma_bound_ms``).
+   the float32-FMA bound beside it as ``fp32_fma_bound_ms``). Both
+   attention kernels also at hymba's windowed shapes (phase 17), the
+   bounds counting only the keys the window keeps, flash attention beside
+   ``scaled_dot_product_attention`` with the band as its mask.
 10. **cluster** (run right after phase 4) -- phase 2's deployment as a
    ``LibraCluster`` of four workers, each with its own 128 MiB resident
    pool (512 MiB on the card) and a clone of the policy table, under
@@ -219,6 +224,16 @@ the 16 phases below, in order but where a phase says when it runs:
    other and freed between: 4 requests of 256 tokens, 8 new, ``auto`` and
    ``'ref'``, under phase 15's rules but the router's; the split shows
    the MLP in place of the MoE block.
+17. **hybrid_serve** (right after phase 16) -- ``hymba-1.5b`` at full
+   width and depth (32 layers, each a Mamba mixer beside its attention;
+   GQA 25/5 of 64; a window of 1024 on 29 layers, layers 0, 15 and 31
+   global; 1.66 B float32 parameters, 6.65 GB): 8 requests of 1280 tokens
+   (past the window, so it applies at prefill and decode) in two waves of
+   4, 16 new each; the second wave decodes from the SSM rows the first
+   left (a fault of the reference, carried). ``auto`` and ``'ref'`` under
+   phase 16's rules; where no token diverged, the engines' final
+   ``ssm_state`` within ``SSM_STATE_TOL`` of each other; the split labels
+   ``mamba_step`` (``ssm``) and prints its share of a step's device time.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -419,6 +434,14 @@ DENSE_RUNS = (ServeSize(arch="minicpm-2b", requests=4, max_batch=4,
                         prompt=256, gen=8, timing_context=260),
               ServeSize(arch="mistral-nemo-12b", requests=4, max_batch=4,
                         prompt=256, gen=8, timing_context=260))
+#: phase 17: the hybrid family, hymba-1.5b at full width and depth; its
+#: prompts are longer than its window (1024)
+HYBRID_RUNS = (ServeSize(arch="hymba-1.5b", requests=8, max_batch=4,
+                         prompt=1280, gen=16, timing_context=1288),)
+#: how far the final ssm_state of phase 17's kernel run may lie from the
+#: plain run's where no token diverged: the decode steps carry the
+#: attention kernels' float32 rounding (split TF32) through 32 layers
+SSM_STATE_TOL = dict(atol=1e-3, rtol=1e-3)
 #: the router's top-k boundary margin (k-th against (k+1)-th probability)
 #: below which the plain run's routing may flip under float32 rounding:
 #: from the first step where it falls below, a differing token is excused
@@ -1573,22 +1596,25 @@ def serve_paged_case(ss: ServeSize, cfg, gen, dev, torch):
                       seq_lens=[ss.timing_context] * ss.max_batch)
 
 
-def paged_timing_case(ss: ServeSize, cfg, gen, dev, torch):
+def paged_timing_case(ss: ServeSize, cfg, gen, dev, torch, window=0):
     """Inputs of one layer's decode attention of a full wave, its label,
     the function's operations and bytes: 4 hd multiply-add operations per
     (query head, valid key); q, the valid keys' K and V head rows, the
     table, positions and lengths read once, the partial (acc, m, l)
-    written once."""
+    written once. With ``window``, only the keys it keeps are valid."""
     pc = serve_paged_case(ss, cfg, gen, dev, torch)
     q, _pool, tables, page_pos, sl = pc
     pos = (page_pos[:, :, None].long()
            + torch.arange(ss.page, device=dev)[None, None, :])
-    keys = int(((tables[:, :, None] >= 0) & (pos <= sl.long()[:, None, None]))
-               .sum())
+    valid = (tables[:, :, None] >= 0) & (pos <= sl.long()[:, None, None])
+    if window > 0:
+        valid &= sl.long()[:, None, None] - pos < window
+    keys = int(valid.sum())
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     reads = q.numel() + keys * 2 * hkv * hd + 2 * tables.numel() + sl.numel()
     writes = q.numel() + 2 * q.shape[0] * hq
-    return (pc, f"B={q.shape[0]} ctx={ss.timing_context}",
+    return (pc, f"{ss.arch} B={q.shape[0]} ctx={ss.timing_context}"
+            + (f" window={window}" if window else ""),
             4 * hq * hd * keys, 4 * (reads + writes))
 
 
@@ -1605,7 +1631,11 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS,
                 served=()):
     """The attention ``kernels`` against their plain versions on the
     card; also at the prefill and decode shapes of each ``(ServeSize,
-    config)`` of ``served``."""
+    config)`` of ``served``, at each attention window its layers use."""
+    from repro_torch.models.transformer import layer_windows
+
+    served = [(s, c, w) for s, c in served
+              for w in sorted(set(layer_windows(c)))]
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     results = []
@@ -1642,10 +1672,10 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS,
              ("h36-hd64-tail", dict(b=1, hq=36, hkv=36, s=130, hd=64), True,
               0),
              ("serve", full, True, 0)]
-    flash += [(f"serve/{s.arch}", dict(b=s.max_batch, hq=c.num_heads,
-                                       hkv=c.num_kv_heads, s=s.prompt,
-                                       hd=c.head_dim), True, 0)
-              for s, c in served]
+    flash += [(f"serve/{s.arch}" + (f"-window{w}" if w else ""),
+               dict(b=s.max_batch, hq=c.num_heads, hkv=c.num_kv_heads,
+                    s=s.prompt, hd=c.head_dim), True, w)
+              for s, c, w in served]
     if "flash_attention" not in kernels:
         flash = []
     for label, shape, causal, window in flash:
@@ -1685,10 +1715,11 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS,
             outs = [ops.paged_attention(*case, window=window, impl=impl)
                     for impl in ("cuda", "ref")]
             record("paged_attention", label, outs[0], outs[1])
-        for label, s, c in [("serve", ss, cfg)] + [
-                (f"serve/{s.arch}", s, c) for s, c in served]:
+        for label, s, c, w in [("serve", ss, cfg, 0)] + [
+                (f"serve/{s.arch}" + (f"-window{w}" if w else ""), s, c, w)
+                for s, c, w in served]:
             case = serve_paged_case(s, c, gen, dev, torch)
-            outs = [ops.paged_attention(*case, impl=impl)
+            outs = [ops.paged_attention(*case, window=w, impl=impl)
                     for impl in ("cuda", "ref")]
             record("paged_attention", label, outs[0], outs[1])
     emit({"phase": "attn_parity", "cases": len(results),
@@ -2251,6 +2282,7 @@ SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "router_topk"),
                ("moe.shared", "repro_torch.models.moe", "_shared_expert"),
                ("moe.rest", "repro_torch.models.moe", "moe_ffn"),
                ("mlp", "repro_torch.models.transformer", "mlp_apply"),
+               ("ssm", "repro_torch.models.ssm", "mamba_step"),
                ("attention", "repro_torch.models.attention",
                 "paged_decode_attention"))
 
@@ -2259,11 +2291,11 @@ def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
     """Profiler split of one full-batch decode step by part: the MoE
     block's router (softmax and top-k), dispatch (sort, positions, the
     buffer), expert products, combine, shared experts and the rest of it
-    (the router's product, the sum), or the dense MLP; the attention (KV
-    write and paged attention); the head; everything else (embedding,
-    norms, projections). Device time from the window's trace, each event
-    under the label whose host range holds its launch
-    (``kernel_audit.device_events_by_label``)."""
+    (the router's product, the sum), or the dense MLP; the Mamba mixer
+    (``ssm``, hybrid only); the attention (KV write and paged attention);
+    the head; everything else (embedding, norms, projections). Device
+    time from the window's trace, each event under the label whose host
+    range holds its launch (``kernel_audit.device_events_by_label``)."""
     import importlib
 
     from torch.profiler import record_function
@@ -2315,8 +2347,10 @@ def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
              for lab in labels}
     split["other"] = device_ms - sum(split.values())
     moe = eng.model.cfg.family == "moe"
+    hybrid = eng.model.cfg.family == "hybrid"
     split = {k: v for k, v in split.items()       # the other family's FFN
-             if not k.startswith("mlp" if moe else "moe.")}
+             if not k.startswith("mlp" if moe else "moe.")
+             and (hybrid or k != "ssm")}
     top = {}
     for e in device:
         top[e["name"][:70]] = top.get(e["name"][:70], 0.0) + \
@@ -2331,9 +2365,30 @@ def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
         out["moe_ms"] = sum(v for k, v in split.items()
                             if k.startswith("moe."))
         out["moe_share_of_device"] = out["moe_ms"] / device_ms
+    if hybrid:
+        out["ssm_share_of_device"] = split["ssm"] / device_ms
     check(split["attention"] > 0 and split["head"] > 0 and
-          split["moe.experts" if moe else "mlp"] > 0,
-          f"the profiled step shows no attention, head or FFN: {out}")
+          split["moe.experts" if moe else "mlp"] > 0 and
+          (not hybrid or split["ssm"] > 0),
+          f"the profiled step shows no attention, head, FFN or SSM: {out}")
+    return out
+
+
+def ssm_state_check(tag: str, got: dict, want: dict, diverged: list,
+                    torch) -> dict:
+    """The final ``ssm_state`` of a hybrid kernel run (``got``) against
+    the plain run's: finite, and within ``SSM_STATE_TOL`` where no token
+    diverged (a diverged token feeds the rows other inputs)."""
+    out = {"tol": SSM_STATE_TOL, "compared": not diverged}
+    for k in want:
+        check(bool(torch.isfinite(got[k]).all()),
+              f"{tag}: non-finite ssm_state[{k!r}]")
+        out[k] = {"max_abs_err": float((got[k] - want[k]).abs().max()),
+                  "max_abs_ref": float(want[k].abs().max())}
+        if not diverged:
+            check(torch.allclose(got[k], want[k], **SSM_STATE_TOL),
+                  f"{tag}: ssm_state[{k!r}] of the kernel run differs from "
+                  f"the plain run's: {out[k]}")
     return out
 
 
@@ -2344,7 +2399,9 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
     next: stats, counters and pages as in phase 6, tokens under its
     near-tie rule (a moe run also under the router-margin rule), the
     kernels launched once a layer a prefill and a decode step, the moe
-    runs' dropped entries equal. Prints one line for the phase."""
+    runs' dropped entries equal, a hybrid run's final ``ssm_state`` within
+    ``SSM_STATE_TOL`` where no token diverged. Prints one line for the
+    phase."""
     from repro_torch.configs import get_config
     from repro_torch.models.moe import expert_capacity
     from repro_torch.models.registry import build_model
@@ -2363,7 +2420,7 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
         prompts = [rng.integers(1, cfg.vocab_size - 1, ss.prompt)
                    for _ in range(ss.requests)]
         margins = LogitMargins(models["ref"])
-        res, watches = {}, {}
+        res, watches, ssm_states = {}, {}, {}
         for impl in ("auto", "ref"):
             with (RouterWatch(margins=impl == "ref") if moe
                   else contextlib.nullcontext()) as watch:
@@ -2371,6 +2428,9 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
                                      torch, kattn,
                                      margins if impl == "ref" else None,
                                      watch)
+            if eng.ssm_state is not None:     # before the split's steps
+                ssm_states[impl] = {k: v.clone()
+                                    for k, v in eng.ssm_state.items()}
             run["decode_step_split"] = parts_decode_split(eng, prompts, ss,
                                                           torch)
             del eng
@@ -2402,6 +2462,12 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
         if ss.layers:
             entry["reduced"] = {"num_layers": [
                 ss.layers, get_config(ss.arch).num_layers]}
+        if ssm_states:
+            entry["hybrid"] = ssm_state_check(
+                tag, ssm_states["auto"], ssm_states["ref"], diverged, torch)
+            entry["hybrid"]["windows"] = sorted(set(models["auto"].windows))
+            entry["hybrid"]["windowed_layers"] = sum(
+                w > 0 for w in models["auto"].windows)
         if moe:
             drops = {impl: w.drops_by_step() for impl, w in watches.items()}
             totals = {impl: sum(w.drops) for impl, w in watches.items()}
@@ -2438,7 +2504,7 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
         entry["kernels"] = {k: kern[k] for k in keep}
         entry["plain"] = {k: ref[k] for k in keep}
         out[ss.arch] = entry
-        del models, params, margins, watches
+        del models, params, margins, watches, ssm_states
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": phase, "card": card_line(torch), "runs": out})
@@ -2859,19 +2925,22 @@ def mlstm_timing_case(xs: XlstmSize, gen, dev, torch):
     return mc, label, flops, nbytes
 
 
-def flash_timing_case(ss: ServeSize, cfg, gen, dev, torch):
+def flash_timing_case(ss: ServeSize, cfg, gen, dev, torch, window=0):
     """Inputs of one layer's prefill attention of a full wave, causal, its
     label, the function's operations and bytes: 4 hd multiply-add
-    operations per (query head, query, key) pair of the causal triangle; q,
-    k, v read once, the output written once."""
+    operations per (query head, query, key) pair of the causal triangle
+    (with ``window``, the pairs ``i - j < window`` of it); q, k, v read
+    once, the output written once."""
     fq, fk, fv = flash_case(gen, dev, torch, b=ss.max_batch,
                             hq=cfg.num_heads, hkv=cfg.num_kv_heads,
                             s=ss.prompt, hd=cfg.head_dim)
-    pairs = ss.prompt * (ss.prompt + 1) // 2
+    pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                for i in range(ss.prompt))
     flops = 4 * ss.max_batch * cfg.num_heads * cfg.head_dim * pairs
     nbytes = 4 * 2 * (fq.numel() + fk.numel())
-    return (fq, fk, fv), f"B={ss.max_batch} S={ss.prompt} causal", flops, \
-        nbytes
+    label = f"{ss.arch} B={ss.max_batch} S={ss.prompt} causal" + (
+        f" window={window}" if window else "")
+    return (fq, fk, fv), label, flops, nbytes
 
 
 def copy_timing_case(size: Size, rng, dev, np, tt):
@@ -2991,7 +3060,7 @@ def card_line(torch) -> str:
 
 
 def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
-           tt):
+           tt, hs: ServeSize = HYBRID_RUNS[0]):
     rng = np.random.default_rng(29)
     mm = size.meta_max
     rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
@@ -3113,6 +3182,32 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
         function_flop=flops,
         fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
     del fq, fk, fv, pc
+    # both again at the windowed layers of hymba (phase 17); the library
+    # call takes the causal band as a boolean mask
+    hcfg = hs.config()
+    pc, label, flops, nbytes = paged_timing_case(hs, hcfg, gen, dev, torch,
+                                                 hcfg.window)
+    entry("paged_attention", label,
+          lambda: ops.paged_attention(*pc, window=hcfg.window, impl="cuda"),
+          lambda: ops.paged_attention(*pc, window=hcfg.window, impl="ref"),
+          (nbytes, flops), ops_rate=frate)
+    (fq, fk, fv), label, flops, nbytes = flash_timing_case(
+        hs, hcfg, gen, dev, torch, hcfg.window)
+    iq = torch.arange(hs.prompt, device=dev)
+    band = (iq[:, None] >= iq[None, :]) & \
+        (iq[:, None] - iq[None, :] < hcfg.window)
+    entry("flash_attention", label,
+          lambda: ops.flash_attention(fq, fk, fv, window=hcfg.window,
+                                      impl="cuda"),
+          lambda: ops.flash_attention(fq, fk, fv, window=hcfg.window,
+                                      impl="ref"),
+          (nbytes, TF32_SPLIT_PASSES * flops),
+          lib_fn=lambda: sdpa(fq, fk, fv, attn_mask=band, enable_gqa=True),
+          ops_rate=trate)
+    out["flash_attention"][-1].update(
+        function_flop=flops,
+        fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
+    del fq, fk, fv, pc, band
     # mlstm_scan: one mLSTM block of the xLSTM prefill
     mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
     c = xs.chunk
@@ -3572,7 +3667,7 @@ def main() -> int:
                            kmlstm)
     ss = ServeSize()
     cfg = get_config(ss.arch)
-    served = [(s, s.config()) for s in MOE_RUNS + DENSE_RUNS]
+    served = [(s, s.config()) for s in MOE_RUNS + DENSE_RUNS + HYBRID_RUNS]
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops,
                  ATTN_KERNELS, served)
     srv_state = timed("serve", serve, ss, dev, torch, np, kattn)
@@ -3585,7 +3680,8 @@ def main() -> int:
     cfg_runs = {phase: timed(phase, config_runs, phase, runs, dev, torch, np,
                              kattn)
                 for phase, runs in (("moe_serve", MOE_RUNS),
-                                    ("dense_configs", DENSE_RUNS))}
+                                    ("dense_configs", DENSE_RUNS),
+                                    ("hybrid_serve", HYBRID_RUNS))}
     xs = XlstmSize()
     mpar = timed("mlstm_parity", mlstm_parity, xs, get_config(xs.arch), dev,
                  torch, ops)
@@ -3616,6 +3712,9 @@ def main() -> int:
             extra["config_launches"] = {
                 arch: r["kernels"]["launches"][name]
                 for runs in cfg_runs.values() for arch, r in runs.items()}
+            extra["windowed"] = {k: tim[name][-1][k] for k in (
+                "variant", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
         extra["bench_launches"] = bench_launches[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -2,10 +2,11 @@
 
 The same modules as the JAX package's ``repro.configs``, copied: each exports
 ``CONFIG`` (the published configuration) and ``reduced()`` (a small
-same-family config for CPU tests). Here are the dense and ``moe`` configs
-that the serving engines serve and the ``ssm`` config xlstm-350m, which
-``XLSTMModel`` runs; the other architectures wait for their model families
-(``ROADMAP.md``, queue 1, item 7).
+same-family config for CPU tests). Here are the dense, ``moe`` and
+``hybrid`` configs that the serving engines serve and the ``ssm`` config
+xlstm-350m, which ``XLSTMModel`` runs; the ``vlm`` and ``encdec``
+architectures wait for their model families (``ROADMAP.md``, queue 1,
+items 2 and 3).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ _ARCH_MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini",
     "minicpm-2b": "repro_torch.configs.minicpm",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo",
+    "hymba-1.5b": "repro_torch.configs.hymba",
     "xlstm-350m": "repro_torch.configs.xlstm",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe",
@@ -27,8 +29,9 @@ _ARCH_MODULES = {
     "libra-proxy-125m": "repro_torch.configs.libra_proxy",
 }
 
-#: architectures of the JAX package whose model family is not ported yet
-NOT_PORTED = ("hymba-1.5b", "whisper-medium", "internvl2-76b")
+#: architectures of the JAX package whose model family is not ported yet,
+#: each with its item in ``ROADMAP.md``, queue 1
+NOT_PORTED = {"internvl2-76b": 2, "whisper-medium": 3}
 
 ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 
@@ -36,7 +39,8 @@ ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP.md, queue 1, item 7)")
+            f"{name!r} is not ported yet (ROADMAP.md, queue 1, item "
+            f"{NOT_PORTED[name]})")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])

@@ -8,14 +8,19 @@ package's ``repro.launch.serve`` prints them.
   python -m repro_torch.launch.serve --no-reduced --arch phi4-mini-3.8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --device cpu
 
 ``--engine`` is ``libra`` (the default), ``standard``, ``copier`` or
 ``static``; ``static`` sizes its batch from a 256 MiB memory budget, as the
 JAX launcher does, and ignores ``--batch``. ``--reduced`` (the default)
 serves the config's small same-family variant; ``--no-reduced`` serves the
 published one. ``--device`` is ``cuda`` by default and raises without a
-GPU. The engines serve the dense and ``moe`` families: xlstm-350m has no
-KV cache, and the JAX launcher fails on it too.
+GPU. The engines serve the dense, ``moe`` and ``hybrid`` families:
+xlstm-350m has no KV cache, and the JAX launcher fails on it too. Under
+``hybrid`` (hymba-1.5b) only ``libra`` runs the Mamba mixers and the
+attention windows; the baselines serve the model without them, as the
+JAX engines do.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from repro_torch.serving.engine import (
     StaticEngine,
 )
 
+#: the families the engines serve: xlstm-350m (``ssm``) has no KV cache
+SERVED_FAMILIES = ("dense", "moe", "hybrid")
 ENGINES = {"libra": LibraEngine, "standard": StandardEngine,
            "copier": CopierEngine, "static": StaticEngine}
 PAGE_SIZE = 8
@@ -45,7 +52,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="libra-proxy-125m",
                     choices=[a for a in ARCHS + ["libra-proxy-125m"]
-                             if get_config(a).family in ("dense", "moe")])
+                             if get_config(a).family in SERVED_FAMILIES])
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--engine", default="libra", choices=list(ENGINES))

@@ -10,11 +10,13 @@ the pages of the others are neither written nor read, as in JAX.
 * ``dense_attention`` — the plain reference path the tests hold the
   kernels against.
 * ``prefill_attention`` — prefill: causal GQA attention at positions
-  ``arange(S)`` through ``ops.flash_attention`` (the JAX package computes
-  the same function with ``dense_attention`` / ``blockwise_attention``).
+  ``arange(S)``, optionally over a sliding window, through
+  ``ops.flash_attention`` (the JAX package computes the same function
+  with ``dense_attention`` / ``blockwise_attention``).
 * ``paged_decode_attention`` — the Libra fast path: write the incoming
   token's K/V into its anchored page, then attend over the anchored pages
-  in place through ``ops.paged_attention``.
+  (optionally over a sliding window) in place through
+  ``ops.paged_attention``.
 * ``prefill_write_pages`` — anchor a prompt's K/V into its pages.
 
 The K/V writes stay plain PyTorch (a masked ``index_put_``, the
@@ -68,14 +70,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      impl: str = "auto") -> torch.Tensor:
+                      window: int = 0, impl: str = "auto") -> torch.Tensor:
     """Causal attention of a prompt at positions ``arange(S)``:
     q [B,S,Hq,hd], k/v [B,S,Hkv,hd] -> [B,S,Hq,hd], through
-    ``ops.flash_attention`` on the ``[B, H, S, hd]`` layout."""
+    ``ops.flash_attention`` on the ``[B, H, S, hd]`` layout. ``window > 0``
+    keeps only keys with ``iq - ik < window`` (the reference's sliding
+    window); 0 is global attention."""
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(),
-                              causal=True, impl=impl)
+                              causal=True, window=window, impl=impl)
     return out.transpose(1, 2)
 
 
@@ -108,13 +112,16 @@ def paged_decode_attention(
     write_shard: torch.Tensor,   # [B]
     write_slot: torch.Tensor,    # [B]
     *,
+    window: int = 0,
     impl: str = "auto",
     write_index: Optional[WriteIndex] = None,
 ) -> torch.Tensor:
     """Write the new token's KV into its anchored page (in place), then
     attend over all anchored pages. Returns attn_out [B, Hq, hd].
-    ``write_index`` is :func:`decode_write_index` of these arguments,
-    computed here when not given."""
+    ``window > 0`` keeps only keys with ``seq_lens - pos < window`` (the
+    reference's sliding window); 0 is global attention. ``write_index`` is
+    :func:`decode_write_index` of these arguments, computed here when not
+    given."""
     if write_index is None:
         write_index = decode_write_index(block_tables, page_pos, seq_lens,
                                          write_shard, write_slot,
@@ -124,7 +131,7 @@ def paged_decode_attention(
     pool.index_put_((pid, off), kv[rows])
     acc, _m, l = ops.paged_attention(
         q.contiguous(), pool, block_tables[:, SHARD].contiguous(),
-        page_pos[:, SHARD].contiguous(), seq_lens, impl=impl)
+        page_pos[:, SHARD].contiguous(), seq_lens, window=window, impl=impl)
     return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -15,7 +15,7 @@ may differ between two runs on the same inputs.
 
 The reference's expert-parallel path (``shard_map`` over a ``'model'``
 mesh axis, ``repro/models/moe.py`` l.148-207) needs a device mesh, which
-the port does not have yet (``ROADMAP.md``, queue 1, item 9);
+the port does not have yet (``ROADMAP.md``, queue 1, item 5);
 ``_dispatch_compute_combine`` already takes the expert range that path
 hands each device.
 """

@@ -1,8 +1,9 @@
 """Model registry of the port: config -> model instance.
 
-The dense and ``moe`` families build a ``TransformerLM`` and the ``ssm``
-family (xLSTM) an ``XLSTMModel``; the other families raise
-``NotImplementedError`` from ``TransformerLM``'s constructor.
+The dense, ``moe`` and ``hybrid`` families build a ``TransformerLM`` and
+the ``ssm`` family (xLSTM) an ``XLSTMModel``; the other families (``vlm``,
+``encdec``) raise ``NotImplementedError`` from ``TransformerLM``'s
+constructor.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ PAGE_SIZE = 64  # tokens per anchored KV page (A.5 granularity matching)
 def build_model(cfg: ModelConfig, page_size: int = PAGE_SIZE,
                 attn_impl: str = "auto", mlstm_impl: str = "auto"):
     """``page_size`` and ``attn_impl`` (the attention kernels' ``ops``
-    impl) apply to the dense and ``moe`` families, ``mlstm_impl`` (the
+    impl) apply to the ``TransformerLM`` families, ``mlstm_impl`` (the
     mLSTM scan's) to the ``ssm`` family."""
     if cfg.family == "ssm":
         from repro_torch.models.xlstm_model import XLSTMModel

@@ -1,21 +1,33 @@
-"""Recurrent mixers of the xLSTM family: mLSTM and sLSTM blocks.
+"""State-space / recurrent mixers: Mamba (hymba), mLSTM + sLSTM (xlstm).
 
-PyTorch twins of the mLSTM and sLSTM parts of the JAX package's
-``repro.models.ssm``; the Mamba mixer belongs to the ``hybrid`` family and
-is not ported yet (``ROADMAP.md``, "What is left").
+PyTorch twins of the JAX package's ``repro.models.ssm``.
 
-One deliberate difference: ``mlstm_block_forward`` runs its chunkwise scan
-through ``ops.mlstm_scan(..., return_state=True)`` (the CUDA kernel on a
-CUDA tensor, the plain chunked version on the CPU), where the JAX function
-calls its jnp ``mlstm_cell_chunked`` and no caller reaches the Pallas
-kernel. The scan starts from the zero state: the JAX function's ``state=``
-argument has no caller and is not carried. ``_slstm_scan`` is a sequential
-recurrence with no TPU kernel behind it and stays a plain loop.
+The Mamba mixer (``hybrid`` family) keeps the reference's chunked form:
+``selective_scan_chunked`` walks chunks of 128 positions in a Python loop
+and scans each chunk with a log-depth doubling scan under the reference's
+combine ``(a0, b0) . (a1, b1) = (a1 a0, a1 b0 + b1)`` (7 steps at 128),
+each step written into new tensors. So at most ``[B, chunk, d_inner, n]``
+is held at once, never ``[B, S, d_inner, n]``, and no loop runs over
+positions. The reference's scan is jnp (``lax.associative_scan`` inside a
+``lax.scan``), with no TPU kernel behind it; the port's is plain PyTorch
+too. The two scans add in another order, so they agree to float32
+rounding, not bit for bit. ``mamba_forward`` drops the scan's final state,
+as the reference's does: prefill leaves no SSM state behind (a fault of
+the reference, carried; see ``TransformerLM.decode_step``).
+
+One deliberate difference in the mLSTM: ``mlstm_block_forward`` runs its
+chunkwise scan through ``ops.mlstm_scan(..., return_state=True)`` (the
+CUDA kernel on a CUDA tensor, the plain chunked version on the CPU), where
+the JAX function calls its jnp ``mlstm_cell_chunked`` and no caller
+reaches the Pallas kernel. The scan starts from the zero state: the JAX
+function's ``state=`` argument has no caller and is not carried.
+``_slstm_scan`` is a sequential recurrence with no TPU kernel behind it
+and stays a plain loop.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +43,131 @@ from repro_torch.models.layers import (
 )
 
 NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM) -- used by hymba's parallel SSM heads
+# ---------------------------------------------------------------------------
+
+
+def mamba_template(d_model: int, ssm_state: int, conv: int,
+                   expand: int) -> Dict:
+    d_inner = expand * d_model
+    dt_rank = -(-d_model // 16)
+    return {
+        "in_proj": ParamSpec((d_model, 2 * d_inner), ("fsdp", "tensor")),
+        "conv_w": ParamSpec((conv, d_inner), ("conv", "tensor")),
+        "conv_b": ParamSpec((d_inner,), ("tensor",), init="zeros"),
+        "x_proj": ParamSpec((d_inner, dt_rank + 2 * ssm_state),
+                            ("tensor", None)),
+        "dt_proj": ParamSpec((dt_rank, d_inner), (None, "tensor")),
+        "dt_bias": ParamSpec((d_inner,), ("tensor",), init="zeros"),
+        "A_log": ParamSpec((d_inner, ssm_state), ("tensor", "state"),
+                           init="zeros"),
+        "D": ParamSpec((d_inner,), ("tensor",), init="ones"),
+        "out_proj": ParamSpec((d_inner, d_model), ("tensor", "fsdp")),
+    }
+
+
+def _mamba_gates(p, u):
+    """u [B,*,d_inner] -> (dt [B,*,d_inner], Bc [B,*,n], Cc [B,*,n])."""
+    n = p["A_log"].shape[1]
+    dt_rank = p["x_proj"].shape[1] - 2 * n
+    proj = u @ p["x_proj"]
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])
+    return dt, proj[..., dt_rank: dt_rank + n], proj[..., dt_rank + n:]
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of the pairs ``(a[:, t], b[:, t])`` along dim 1 under
+    ``(a0, b0) . (a1, b1) = (a1 a0, a1 b0 + b1)``: after it, ``b[:, t]`` is
+    the state at ``t`` from a zero start and ``a[:, t]`` the product of the
+    decays up to ``t``. Each doubling step reads the last step's tensors
+    and writes new ones: log2(len) steps."""
+    n = a.shape[1]
+    d = 1
+    while d < n:
+        a2, b2 = torch.empty_like(a), torch.empty_like(b)
+        a2[:, :d] = a[:, :d]
+        b2[:, :d] = b[:, :d]
+        torch.mul(a[:, d:], a[:, :-d], out=a2[:, d:])
+        torch.addcmul(b[:, d:], a[:, d:], b[:, :-d], out=b2[:, d:])
+        a, b = a2, b2
+        d *= 2
+    return a, b
+
+
+def selective_scan_chunked(
+    u: torch.Tensor,    # [B, S, d]
+    dt: torch.Tensor,   # [B, S, d]
+    Bc: torch.Tensor,   # [B, S, n]
+    Cc: torch.Tensor,   # [B, S, n]
+    A: torch.Tensor,    # [d, n]  (negative)
+    h0: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B,S,d], h_final [B,d,n]). The reference pads ``S`` to a
+    multiple of ``chunk`` with steps that keep the state (decay 1, input
+    0); here the last chunk is just shorter."""
+    b, s, d = u.shape
+    n = A.shape[1]
+    h = h0 if h0 is not None else u.new_zeros((b, d, n))
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        dt_c = dt[:, sl]
+        a = torch.exp(dt_c[..., None] * A)                       # [B,c,d,n]
+        x_in = (dt_c * u[:, sl])[..., None] * Bc[:, sl, None, :]  # [B,c,d,n]
+        a_s, b_s = _doubling_scan(a, x_in)
+        hs = a_s * h[:, None] + b_s                              # [B,c,d,n]
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cc[:, sl]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1) if ys else u.new_zeros((b, 0, d))
+    return y, h
+
+
+def mamba_forward(p, x: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """Full-sequence mamba mixer. x [B, S, D] -> [B, S, D]. The scan's
+    final state is dropped, as in the reference."""
+    d_inner = p["conv_w"].shape[1]
+    ug = x @ p["in_proj"]
+    u, z = ug[..., :d_inner], ug[..., d_inner:]
+    u = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
+    dt, Bc, Cc = _mamba_gates(p, u)
+    A = -torch.exp(p["A_log"].float())
+    y, _ = selective_scan_chunked(u.float(), dt.float(), Bc.float(),
+                                  Cc.float(), A, chunk=chunk)
+    y = y.to(x.dtype) + u * p["D"]
+    return (y * F.silu(z)) @ p["out_proj"]
+
+
+def mamba_state_shape(cfg_d_model: int, ssm_state: int, conv: int,
+                      expand: int):
+    d_inner = expand * cfg_d_model
+    return {
+        "ssm": (d_inner, ssm_state),
+        "conv": (conv - 1, d_inner),
+    }
+
+
+def mamba_step(p, x_t: torch.Tensor, state: Dict[str, torch.Tensor]):
+    """One decode step. x_t [B, D]; state {'ssm' [B,d,n], 'conv' [B,K-1,d]}.
+    Returns (out [B, D], the new state); ``state`` is not written."""
+    d_inner = p["conv_w"].shape[1]
+    ug = x_t @ p["in_proj"]
+    u, z = ug[..., :d_inner], ug[..., d_inner:]
+    u, conv_state = conv1d_step(u, state["conv"], p["conv_w"], p["conv_b"])
+    u = F.silu(u).to(x_t.dtype)
+    dt, Bc, Cc = _mamba_gates(p, u)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt[..., None].float() * A)                   # [B,d,n]
+    h = a * state["ssm"] + ((dt * u)[..., None] * Bc[:, None, :]).float()
+    y = torch.einsum("bdn,bn->bd", h, Cc.float()).to(x_t.dtype) \
+        + u * p["D"]
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return out, {"ssm": h.to(state["ssm"].dtype),
+                 "conv": conv_state.to(state["conv"].dtype)}
+
 
 # ---------------------------------------------------------------------------
 # mLSTM — matrix-memory LSTM (xLSTM), chunkwise-parallel + O(1) decode step

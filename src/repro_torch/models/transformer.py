@@ -1,10 +1,15 @@
-"""Decoder-only LM of the dense and ``moe`` families, serving path.
+"""Decoder-only LM of the dense, ``moe`` and ``hybrid`` families, serving
+path.
 
 PyTorch twin of the JAX package's ``repro.models.transformer.TransformerLM``
 for ``family == "dense"`` (phi3, phi4, minicpm, mistral-nemo, the
-libra-proxy model) and ``family == "moe"`` (qwen2-moe, qwen3-moe: the FFN
+libra-proxy model), ``family == "moe"`` (qwen2-moe, qwen3-moe: the FFN
 is ``models/moe.moe_ffn``, one call a layer over all ``B*S`` rows, padded
-positions included, at the serving paths' ``capacity_factor=2.0``).
+positions included, at the serving paths' ``capacity_factor=2.0``) and
+``family == "hybrid"`` (hymba: each layer runs a Mamba mixer,
+``models/ssm``, beside its attention on the same normed input and adds
+the mean of the two branches, each RMS-normed; attention is windowed on
+every layer but the config's global ones, see :func:`layer_groups`).
 Serving follows the Libra datapath: ``prefill`` anchors KV into pool pages
 in place (ingress) and attends through ``ops.flash_attention``;
 ``decode_step`` reads the pages via block-table metadata through
@@ -17,12 +22,13 @@ JAX package's nested dict, layers stacked on a leading axis; the large
 products stay ``torch.matmul``, as they are plain XLA dots there. Layers
 run in a Python loop (the JAX package scans them). Computation is float32.
 
-The ``hybrid``, ``vlm`` and ``encdec`` families and training are not
-ported yet (``ROADMAP.md``, queue 1, items 7 and 8).
+The ``vlm`` and ``encdec`` families and training are not ported yet
+(``ROADMAP.md``, queue 1, items 2 to 4).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +36,7 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     ParamSpec,
     apply_rope,
@@ -41,7 +48,9 @@ from repro_torch.models.layers import (
     tree_map,
 )
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+#: the families left, each with its item in ``ROADMAP.md``, queue 1
+UNPORTED_FAMILIES = {"vlm": 2, "encdec": 3}
 
 
 def stack_template(tmpl: Dict, n: int) -> Dict:
@@ -50,6 +59,39 @@ def stack_template(tmpl: Dict, n: int) -> Dict:
         lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
                             s.scale, tuple(d + 1 for d in s.fan_in_dims)),
         tmpl)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    start: int
+    end: int
+    window: int  # 0 = global attention
+
+
+def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
+    """Runs of layers that share an attention window: under ``hybrid``,
+    the windowed runs around each of ``global_attn_layers`` (window 0);
+    one run of every layer otherwise."""
+    if cfg.family != "hybrid" or not cfg.global_attn_layers:
+        return [LayerGroup(0, cfg.num_layers,
+                           cfg.window if cfg.family == "hybrid" else 0)]
+    groups: List[LayerGroup] = []
+    cur = 0
+    for g in sorted(cfg.global_attn_layers):
+        if g > cur:
+            groups.append(LayerGroup(cur, g, cfg.window))
+        groups.append(LayerGroup(g, g + 1, 0))
+        cur = g + 1
+    if cur < cfg.num_layers:
+        groups.append(LayerGroup(cur, cfg.num_layers, cfg.window))
+    return groups
+
+
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Each layer's attention window (0 = global), from
+    :func:`layer_groups`."""
+    return [grp.window for grp in layer_groups(cfg)
+            for _ in range(grp.start, grp.end)]
 
 
 def layer_params(params, i: int):
@@ -61,14 +103,17 @@ class TransformerLM:
     def __init__(self, cfg: ModelConfig, page_size: int = 64,
                  attn_impl: str = "auto"):
         if cfg.family not in PORTED_FAMILIES:
+            item = UNPORTED_FAMILIES.get(cfg.family)
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                "(ROADMAP.md, queue 1, item 7)")
+                f"{cfg.name}: the {cfg.family!r} family is not ported yet"
+                + (f" (ROADMAP.md, queue 1, item {item})" if item else ""))
         if attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
                              f"one of {IMPLS})")
         self.cfg = cfg
         self.page_size = page_size
+        #: each layer's attention window (0 = global)
+        self.windows = layer_windows(cfg)
         #: ``ops`` impl of the attention kernels: 'auto' runs the CUDA
         #: kernels on CUDA tensors, 'ref' the plain versions anywhere
         self.attn_impl = attn_impl
@@ -93,6 +138,13 @@ class TransformerLM:
             t["moe"] = moe_lib.moe_template(c)
         else:
             t["mlp"] = mlp_template(c.d_model, c.d_ff, c.act)
+        if c.family == "hybrid":
+            t["ssm"] = ssm_lib.mamba_template(c.d_model, c.ssm_state,
+                                              c.ssm_conv, c.ssm_expand)
+            t["attn_branch_norm"] = ParamSpec((c.d_model,), (None,),
+                                              init="zeros")
+            t["ssm_branch_norm"] = ParamSpec((c.d_model,), (None,),
+                                             init="zeros")
         return t
 
     def template(self) -> Dict:
@@ -159,6 +211,18 @@ class TransformerLM:
         return (apply_rope(q, positions, c.rope_theta),
                 apply_rope(k, positions, c.rope_theta), v)
 
+    def _mixer_residual(self, lp, x: torch.Tensor, attn_out: torch.Tensor,
+                        ssm_out: Optional[torch.Tensor]) -> torch.Tensor:
+        """x plus the token mixer's output: the attention branch alone, or
+        under ``hybrid`` the mean of the attention and SSM branches, each
+        RMS-normed (``ssm_out``)."""
+        c = self.cfg
+        if ssm_out is None:
+            return x + attn_out * c.residual_scale
+        mixed = 0.5 * (rms_norm(attn_out, lp["attn_branch_norm"], c.norm_eps)
+                       + rms_norm(ssm_out, lp["ssm_branch_norm"], c.norm_eps))
+        return x + mixed * c.residual_scale
+
     def _mlp_residual(self, lp, x: torch.Tensor) -> torch.Tensor:
         """The FFN block over x [..., D]. A ``moe`` layer routes all of
         x's rows in one call, as every serving path of the reference does
@@ -180,6 +244,14 @@ class TransformerLM:
         return (c.num_layers, total_pages, self.page_size, 2, c.num_kv_heads,
                 c.head_dim)
 
+    def ssm_state_shapes(self, batch: int) -> Dict[str, Tuple[int, ...]]:
+        """The ``hybrid`` decode state of ``batch`` rows: every layer's
+        Mamba state (``ssm_lib.mamba_state_shape``), layers leading."""
+        c = self.cfg
+        shapes = ssm_lib.mamba_state_shape(c.d_model, c.ssm_state, c.ssm_conv,
+                                           c.ssm_expand)
+        return {k: (c.num_layers, batch) + s for k, s in shapes.items()}
+
     @torch.no_grad()
     def decode_step(
         self,
@@ -191,13 +263,25 @@ class TransformerLM:
         page_pos: torch.Tensor,     # [B, n_shards, pps]
         write_shard: torch.Tensor,  # [B]
         write_slot: torch.Tensor,   # [B]
+        *,
+        ssm_state: Optional[Dict[str, torch.Tensor]] = None,  # hybrid only
     ) -> torch.Tensor:
         """One Libra decode step. Returns next_tokens [B] int32; the pool
         is updated in place.
 
+        Under ``hybrid`` (and only then) ``ssm_state`` is required:
+        ``{"ssm": [L, B, d_inner, n], "conv": [L, B, K-1, d_inner]}``
+        (:meth:`ssm_state_shapes`), each row the Mamba state of the batch
+        row it stands beside. The step advances it *in place*, where the
+        JAX model returns a new state (as ``XLSTMModel.decode_step`` does).
+
         Host<->device traffic: token ids + O(pages) int32 metadata in;
         token ids out. The KV payload never leaves the pool."""
         c = self.cfg
+        hybrid = c.family == "hybrid"
+        if (ssm_state is not None) != hybrid:
+            raise ValueError(f"{c.name}: ssm_state is for the hybrid "
+                             "family's decode step, and it needs one")
         x = self.embed(params, tokens)                          # [B, D]
         b = x.shape[0]
         widx = attn.decode_write_index(tables, page_pos, seq_lens,
@@ -208,9 +292,16 @@ class TransformerLM:
             q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
             out = attn.paged_decode_attention(
                 q[:, 0], k[:, 0], v[:, 0], pool[li], tables, page_pos,
-                seq_lens, write_shard, write_slot, impl=self.attn_impl,
-                write_index=widx)
-            x = x + (out.reshape(b, c.q_dim) @ lp["wo"]) * c.residual_scale
+                seq_lens, write_shard, write_slot, window=self.windows[li],
+                impl=self.attn_impl, write_index=widx)
+            ssm_out = None
+            if hybrid:
+                ssm_out, st = ssm_lib.mamba_step(
+                    lp["ssm"], h, {key: t[li] for key, t in ssm_state.items()})
+                for key, val in st.items():
+                    ssm_state[key][li].copy_(val)
+            x = self._mixer_residual(lp, x, out.reshape(b, c.q_dim) @ lp["wo"],
+                                     ssm_out)
             x = self._mlp_residual(lp, x)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
         return self.logits(params, x, weight_dtype=torch.bfloat16
@@ -231,7 +322,10 @@ class TransformerLM:
     ) -> torch.Tensor:
         """Ingress: run the prompt, anchor its KV into pool pages in place,
         return the first sampled tokens [B] int32. Only token ids ever
-        surface to the host."""
+        surface to the host. Under ``hybrid`` the Mamba mixers' final
+        states are dropped, as in the JAX model: prefill writes no
+        ``ssm_state``, so a request's decode starts from whatever its
+        batch row holds (a fault of the reference, carried)."""
         c = self.cfg
         x = self.embed(params, tokens)                          # [B, S, D]
         b, s, _ = x.shape
@@ -245,8 +339,12 @@ class TransformerLM:
             attn.prefill_write_pages(k, v, pool[li], tables, token_shard,
                                      token_slot, token_off, token_valid,
                                      write_index=widx)
-            out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
-            x = x + (out.reshape(b, s, c.q_dim) @ lp["wo"]) * c.residual_scale
+            out = attn.prefill_attention(q, k, v, window=self.windows[li],
+                                         impl=self.attn_impl)
+            ssm_out = (ssm_lib.mamba_forward(lp["ssm"], h)
+                       if c.family == "hybrid" else None)
+            x = self._mixer_residual(lp, x, out.reshape(b, s, c.q_dim)
+                                     @ lp["wo"], ssm_out)
             x = self._mlp_residual(lp, x)
         # sample the first output token from the last valid position
         idx = (seq_lens.long() - 1).clamp(min=0)
@@ -264,7 +362,10 @@ class TransformerLM:
         """Baseline prefill: returns (first_tokens [B] int32, kv_cache
         [L, B, max_len, 2, Hkv, hd]) -- the contiguous cache the standard
         stack re-copies every step, zero past the prompt's ``S`` tokens.
-        Attention takes the route of :meth:`prefill`."""
+        Attention takes the route of :meth:`prefill`, but, as in the JAX
+        model, global on every layer and with no SSM branch under
+        ``hybrid``: the baselines serve another model than
+        ``LibraEngine`` there (a fault of the reference, carried)."""
         c = self.cfg
         x = self.embed(params, tokens)                          # [B, S, D]
         b, s, _ = x.shape
@@ -300,7 +401,8 @@ class TransformerLM:
         materialise a fresh cache: the standard stack's per-message payload
         copy, which the engines count); ``donate=True`` writes ``cache`` in
         place and returns it. The head's weights are rounded to bfloat16,
-        as in :meth:`decode_step`."""
+        as in :meth:`decode_step`. No window and no SSM branch, as in
+        :meth:`prefill_dense`."""
         c = self.cfg
         if not donate:
             cache = cache.clone()

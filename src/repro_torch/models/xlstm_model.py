@@ -15,9 +15,10 @@ scans each run). Computation is float32.
 Differences from the JAX model, each deliberate: ``decode_step`` updates
 the decode state in place (JAX returns a new tree); prefill computes the
 conv window from the last ``K-1`` positions only, the rows the JAX model
-slices from its full-length recomputation. ``forward`` and ``loss_fn``
-belong to training and are not ported yet (``ROADMAP.md``, "What is
-left").
+slices from its full-length recomputation. ``decode_step`` rounds the
+head's weights to bfloat16, as the JAX model's does (see ``logits``).
+``forward`` and ``loss_fn`` belong to training and are not ported yet
+(``ROADMAP.md``, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -124,8 +125,18 @@ class XLSTMModel:
     def param_count(self) -> int:
         return count_template_params(self.template())
 
-    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ params["lm_head"]
+    def logits(self, params, hidden: torch.Tensor,
+               weight_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden``; with ``weight_dtype`` the head's weights
+        are first rounded to that dtype (and computed with in
+        ``hidden``'s). ``decode_step`` passes bfloat16: the JAX model's
+        calls ``logits`` without ``compute_dtype``, whose default is
+        bfloat16 (a fault of the reference, carried so that tokens agree;
+        ``prefill`` passes its compute dtype there and stays float32)."""
+        w = params["lm_head"]
+        if weight_dtype is not None:
+            w = w.to(weight_dtype).to(hidden.dtype)
+        return hidden @ w
 
     # -- serving -----------------------------------------------------------
     def decode_state_shapes(self, batch: int) -> Dict[str, Tuple[int, ...]]:
@@ -179,7 +190,8 @@ class XLSTMModel:
             for skey, key in keys:
                 state[skey][i].copy_(st[key])
         x = rms_norm(x, params["final_norm"], c.norm_eps)
-        next_tokens = self.logits(params, x).argmax(dim=-1).to(torch.int32)
+        next_tokens = self.logits(params, x, weight_dtype=torch.bfloat16
+                                  ).argmax(dim=-1).to(torch.int32)
         return next_tokens, state
 
     @torch.no_grad()

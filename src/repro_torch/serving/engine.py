@@ -7,7 +7,10 @@ continuous-batching LLM servers, PyTorch twins of the JAX package's
                         ids + O(pages) int32 metadata cross the host
                         boundary, VPI handles support zero-copy forwarding.
                         A ``stack`` (and its ``kv_pool``) may be shared
-                        between engines.
+                        between engines. Under the ``hybrid`` family it
+                        also keeps the Mamba state (``ssm_state``), a row
+                        a batch slot, which decode steps advance in place
+                        and prefill never writes.
 * ``StandardEngine`` -- standard stack: contiguous KV copied whole every
                         step (``decode_step_dense`` undonated), full logits
                         downloaded *per connection*, one transfer and one
@@ -172,6 +175,15 @@ class LibraEngine(_EngineBase):
                                     device=self.device)
         # parking page for inactive slots (keeps decode NaN-free)
         self._parking = self.pool.alloc.alloc_page(0, 0)
+        # the hybrid family's Mamba state, a row a batch slot: made zero
+        # once and only ever advanced by decode steps (prefill writes none),
+        # so a request decodes from whatever its row last held, as in the
+        # JAX engine (a fault of the reference, carried)
+        self.ssm_state = None
+        if self.cfg.family == "hybrid":
+            self.ssm_state = {
+                k: torch.zeros(shape, dtype=torch.float32, device=self.device)
+                for k, shape in model.ssm_state_shapes(max_batch).items()}
 
     # -- ingress (prefill anchors the payload) -------------------------------
     def _prefill_group(self, group: List[Request]) -> None:
@@ -266,7 +278,7 @@ class LibraEngine(_EngineBase):
         next_tokens = self.model.decode_step(
             self.params, self._dev(tokens), self._dev(seq_lens),
             self.pool.pool, self._dev(tables), self._dev(page_pos),
-            self._dev(wsh), self._dev(wsl))
+            self._dev(wsh), self._dev(wsl), ssm_state=self.ssm_state)
         next_tokens = next_tokens.cpu().numpy()
 
         self.stats.h2d_bytes += (tokens.nbytes + seq_lens.nbytes + tables.nbytes

@@ -68,7 +68,7 @@ def _close(jax_out, torch_out):
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "phi3-mini-3.8b",
                                   "libra-proxy-125m", "minicpm-2b",
                                   "mistral-nemo-12b", "qwen2-moe-a2.7b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "hymba-1.5b"])
 def test_configs_and_param_counts_match_jax(arch):
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
@@ -79,15 +79,16 @@ def test_configs_and_param_counts_match_jax(arch):
         assert round(full.param_count() / 1e9, 2) == 3.84
 
 
-@pytest.mark.parametrize("family", ["hybrid", "vlm"])
+@pytest.mark.parametrize("family", ["vlm", "encdec"])
 def test_unported_families_raise(family):
     cfg = ModelConfig(name=f"x-{family}", family=family, num_layers=1,
                       d_model=8, num_heads=2, num_kv_heads=2, d_ff=8,
                       vocab_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"vlm": 2, "encdec": 3}[family]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*item {item}"):
         t_build(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("hymba-1.5b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        tconfigs.get_config("whisper-medium")
 
 
 def test_init_params_is_seeded_and_follows_the_template():

@@ -268,15 +268,21 @@ def test_serve_launcher_moe_reports_what_the_jax_launcher_reports():
 
 def test_registry_and_launcher_offer_the_four_configs():
     """The four configs are registered and served; what is left unported
-    is exactly the hybrid, encdec and vlm archs, and the launcher refuses
-    those and xlstm-350m (no KV cache)."""
-    assert set(tconfigs.NOT_PORTED) == {"hymba-1.5b", "whisper-medium",
-                                        "internvl2-76b"}
-    for arch in ARCHS:
+    is exactly the encdec and vlm archs (each with its ROADMAP item), and
+    the launcher serves hymba-1.5b and refuses xlstm-350m (no KV cache)
+    only."""
+    assert set(tconfigs.NOT_PORTED) == {"whisper-medium", "internvl2-76b"}
+    for arch in ARCHS + ["hymba-1.5b"]:
         assert arch in tconfigs.ARCHS
-    for arch in tconfigs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for arch, item in (("internvl2-76b", 2), ("whisper-medium", 3)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tconfigs.get_reduced(arch)
-    for arch in ("hymba-1.5b", "xlstm-350m"):
-        with pytest.raises(SystemExit):
-            tserve.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "xlstm-350m", "--device", "cpu"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tserve.main(["--arch", "hymba-1.5b", "--requests", "2",
+                     "--prompt-len", "12", "--gen", "2", "--batch", "2",
+                     "--device", "cpu"])
+    assert buf.getvalue().splitlines()[0] == \
+        "engine=libra batch=2 requests=2"

@@ -370,6 +370,45 @@ def test_prefill_state_is_taken_at_the_padded_end(twin):
     assert not torch.allclose(alone["m_C"], tst["m_C"][:, 1:])
 
 
+def test_decode_head_rounds_its_weights_like_jax():
+    """The JAX model's ``decode_step`` calls ``logits`` without
+    ``compute_dtype``, so its head's weights are rounded to bfloat16; the
+    port's decode head does the same. Over 20,000 random hidden states of
+    the reduced config the port's argmax equals the JAX head's on every
+    one and its logits agree to 1e-5; the float32 head's argmax differs on
+    some, so a twin of this size sees the rounding."""
+    cfg = jconfigs.get_reduced(ARCH)
+    jm = j_build(cfg)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = t_build(tconfigs.get_reduced(ARCH))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tm, device="cpu")
+    h = np.random.default_rng(19).standard_normal(
+        (20_000, cfg.d_model)).astype(np.float32)
+    want = np.asarray(jm.logits(jp, h[:, None]))[:, 0]
+    got = tm.logits(tp, torch.from_numpy(h), weight_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), want, **PRIM_TOL)
+    assert got.argmax(-1).tolist() == want.argmax(-1).tolist()
+    full = tm.logits(tp, torch.from_numpy(h)).argmax(-1).numpy()
+    assert (full != want.argmax(-1)).sum() > 0
+
+
+def test_decode_step_uses_the_rounded_head(twin, monkeypatch):
+    """``decode_step`` asks for the bfloat16 head, ``prefill`` for the
+    float32 one (the JAX model passes its compute dtype there)."""
+    _jm, _jp, tm, tp = twin
+    asked = []
+    inner = tm.logits
+
+    def spy(params, hidden, weight_dtype=None):
+        asked.append(weight_dtype)
+        return inner(params, hidden, weight_dtype)
+    monkeypatch.setattr(tm, "logits", spy)
+    toks, lens = _prompts(tm.cfg, [9, 12], seed=5)
+    first, st = tm.prefill(tp, torch.from_numpy(toks), torch.from_numpy(lens))
+    tm.decode_step(tp, first, torch.from_numpy(lens), st)
+    assert asked == [None, torch.bfloat16]
+
+
 def test_prefill_launches_the_kernel_once_per_mlstm_block(twin, monkeypatch):
     """With ``ops.resolve`` answering 'cuda', every mLSTM block's scan goes
     through the kernel's wrapper (a fake that counts and calls the plain
