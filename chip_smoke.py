@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
-the 17 phases below, in order but where a phase says when it runs:
+the 19 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -46,10 +46,17 @@ the 17 phases below, in order but where a phase says when it runs:
    (and 12 for paged attention), 36 heads of 64, every head dim the
    wrappers take (16 to 128), ``-1`` table slots, windows, lengths that
    are no multiple of a tile, pages of two tiles, a table of 70 slots, and
-   the serving shapes of phases 6, 15, 16 and 17 (the prefill of a full
+   the serving shapes of phases 6, 15 to 19 (the prefill of a full
    wave and a decode step of it; paged attention also at B=1); hymba's
    (phase 17: 25 query heads over 5 KV heads of 64) both global and over
-   its window of 1024, as its layers attend.
+   its window of 1024, as its layers attend; internvl2's (phase 18: a
+   causal prefill of 4 x 768, 64 over 8 heads of 128; a decode step over
+   776 keys at group 8); whisper's (phase 19: the decoder's causal
+   prefill of 8 x 32 and decode step, 16 heads of 64, and its two
+   non-causal prefill calls with ``Sq != Skv``: the encoder's 1500 frames
+   and the prompt's 32 queries, each over the 1536 keys
+   ``attention.noncausal_attention`` pads them to); non-causal cases with
+   ``Sq`` above and below ``Skv``, ``Skv`` no multiple of 64.
 6. **serve** -- ``LibraEngine`` serving ``phi4-mini-3.8b`` at full width
    and depth (3.84 B float32 parameters from a fixed seed on the card): 16
    requests of 1024 tokens (8-token header) in two waves of 8, 32 new
@@ -94,7 +101,11 @@ the 17 phases below, in order but where a phase says when it runs:
    the float32-FMA bound beside it as ``fp32_fma_bound_ms``). Both
    attention kernels also at hymba's windowed shapes (phase 17), the
    bounds counting only the keys the window keeps, flash attention beside
-   ``scaled_dot_product_attention`` with the band as its mask.
+   ``scaled_dot_product_attention`` with the band as its mask; and at
+   the shapes of phases 18-19 (rows marked ``shape_of``): both decode
+   steps, internvl2's causal prefill and whisper's two non-causal calls,
+   whose bound counts the whole ``Sq x Skv`` rectangle, beside
+   ``scaled_dot_product_attention`` (float32, non-causal).
 10. **cluster** (run right after phase 4) -- phase 2's deployment as a
    ``LibraCluster`` of four workers, each with its own 128 MiB resident
    pool (512 MiB on the card) and a clone of the policy table, under
@@ -234,6 +245,33 @@ the 17 phases below, in order but where a phase says when it runs:
    phase 16's rules; where no token diverged, the engines' final
    ``ssm_state`` within ``SSM_STATE_TOL`` of each other; the split labels
    ``mamba_step`` (``ssm``) and prints its share of a step's device time.
+18. **vlm_serve** (right after phase 17) -- ``internvl2-76b`` at full
+   width (d_model 8192, GQA 64/8 of 128, d_ff 28672, vocabulary 128256)
+   with 16 of its 80 layers (16.86 B float32 parameters, 63.4 GB; the
+   whole model is 282.5 GB), driven through ``prefill`` / ``decode_step``
+   (the engines feed no image, as the JAX package's cannot) on a
+   ``PagedKVPool`` of page 16: 4 requests, each an image of 256 seeded
+   patch embeddings ``[256, 8192]`` projected by ``img_proj`` and 512
+   text tokens, all 768 positions anchored at prefill, 8 new tokens at the
+   prefix-inclusive positions (``extend`` and ``write_coords`` each step).
+   Once through the kernels and once through the plain versions: tokens
+   under phase 6's near-tie rule, ``flash_attention`` 16 launches a
+   prefill and ``paged_attention`` 16 a step (none in the plain run),
+   every page back. Prints seconds, time to first token, ms a decode step,
+   tokens/s, peak memory, and profiler splits of the prefill and of a
+   step (the ``img_proj`` product, attention, MLP, head, the rest).
+19. **encdec_serve** (right after phase 18) -- ``whisper-medium`` at full
+   width and depth (24 encoder and 24 decoder layers, 16 heads of 64;
+   758,123,520 parameters, 3.03 GB): 8 requests of 1500 seeded frame
+   embeddings and a decoder prompt of 32 tokens, 32 new each; the cross
+   K/V of every decoder layer (``cross_kv [24, 8, 1500, 2, 16, 64]``,
+   2.36 GB) computed once and read in place by every step. ``auto`` and
+   ``'ref'`` under phase 18's rules; ``cross_kv`` of both runs within
+   ``atol = rtol = 1e-4``; ``flash_attention`` 72 launches a prefill (24
+   encoder, 24 self, 24 cross), ``paged_attention`` 24 a step. Prints the
+   encoder's seconds apart from the decoder's prefill, ms a step,
+   tokens/s, peak memory, and the cross-attention's share of a step's
+   device time.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -438,6 +476,17 @@ DENSE_RUNS = (ServeSize(arch="minicpm-2b", requests=4, max_batch=4,
 #: prompts are longer than its window (1024)
 HYBRID_RUNS = (ServeSize(arch="hymba-1.5b", requests=8, max_batch=4,
                          prompt=1280, gen=16, timing_context=1288),)
+#: phase 18: the vlm family, internvl2-76b at full width with 16 of its
+#: 80 layers (the whole model is 282.5 GB in float32; 16 layers, the
+#: embedding and the head are 63.4 GB). ``prompt`` counts every prefill
+#: position: the image's 256 patch embeddings and 512 text tokens
+VLM_RUN = ServeSize(arch="internvl2-76b", layers=16, requests=4, max_batch=4,
+                    prompt=768, gen=8, timing_context=776)
+#: phase 19: the encdec family, whisper-medium at full width and depth (24
+#: encoder and 24 decoder layers): 1500 frames a request (the config's
+#: ``enc_frames``, 30 s of audio) and a decoder prompt of 32 tokens
+ENCDEC_RUN = ServeSize(arch="whisper-medium", requests=8, max_batch=8,
+                       prompt=32, gen=32, timing_context=48)
 #: how far the final ssm_state of phase 17's kernel run may lie from the
 #: plain run's where no token diverged: the decode steps carry the
 #: attention kernels' float32 rounding (split TF32) through 32 layers
@@ -1618,10 +1667,28 @@ def paged_timing_case(ss: ServeSize, cfg, gen, dev, torch, window=0):
             4 * hq * hd * keys, 4 * (reads + writes))
 
 
-def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd):
+def flash_case(gen, dev, torch, *, b, hq, hkv, s, hd, skv=None):
+    """q [b, hq, s, hd] and k, v [b, hkv, skv, hd] (``skv`` = ``s`` when
+    not given)."""
+    skv = s if skv is None else skv
     return (torch.randn((b, hq, s, hd), generator=gen, device=dev),
-            torch.randn((b, hkv, s, hd), generator=gen, device=dev),
-            torch.randn((b, hkv, s, hd), generator=gen, device=dev))
+            torch.randn((b, hkv, skv, hd), generator=gen, device=dev),
+            torch.randn((b, hkv, skv, hd), generator=gen, device=dev))
+
+
+def encdec_flash_shapes(es: ServeSize, cfg) -> dict:
+    """The non-causal ``flash_attention`` calls of phase 19's prefill,
+    keys padded as ``attention.noncausal_attention`` pads them: the
+    encoder's self-attention (``enc_frames`` over ``enc_frames`` + pad)
+    and the decoder's cross-attention (the prompt over the same keys)."""
+    from repro_torch.models.attention import blockwise_kv_pad
+
+    f = cfg.enc_frames
+    heads = dict(b=es.max_batch, hq=cfg.num_heads, hkv=cfg.num_kv_heads,
+                 hd=cfg.head_dim)
+    return {"encoder": dict(heads, s=f, skv=f + blockwise_kv_pad(f, f)),
+            "cross": dict(heads, s=es.prompt,
+                          skv=f + blockwise_kv_pad(es.prompt, f))}
 
 
 ATTN_KERNELS = ("paged_attention", "flash_attention")
@@ -1671,7 +1738,18 @@ def attn_parity(ss: ServeSize, cfg, dev, torch, ops, kernels=ATTN_KERNELS,
               0),
              ("h36-hd64-tail", dict(b=1, hq=36, hkv=36, s=130, hd=64), True,
               0),
-             ("serve", full, True, 0)]
+             ("serve", full, True, 0),
+             # non-causal with Sq != Skv, Skv no multiple of 64
+             ("g2-hd64-noncausal-sq>skv", dict(b=2, hq=4, hkv=2, s=150,
+                                               skv=70, hd=64), False, 0),
+             ("g2-hd128-noncausal-sq<skv", dict(b=1, hq=6, hkv=3, s=37,
+                                                skv=203, hd=128), False, 0),
+             ("g1-hd32-noncausal-sq1", dict(b=3, hq=2, hkv=2, s=1, skv=33,
+                                            hd=32), False, 0)]
+    ecfg = ENCDEC_RUN.config()
+    flash += [(f"serve/{ENCDEC_RUN.arch}-{name}", shape, False, 0)
+              for name, shape in encdec_flash_shapes(ENCDEC_RUN,
+                                                     ecfg).items()]
     flash += [(f"serve/{s.arch}" + (f"-window{w}" if w else ""),
                dict(b=s.max_batch, hq=c.num_heads, hkv=c.num_kv_heads,
                     s=s.prompt, hd=c.head_dim), True, w)
@@ -2287,28 +2365,18 @@ SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "router_topk"),
                 "paged_decode_attention"))
 
 
-def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
-    """Profiler split of one full-batch decode step by part: the MoE
-    block's router (softmax and top-k), dispatch (sort, positions, the
-    buffer), expert products, combine, shared experts and the rest of it
-    (the router's product, the sum), or the dense MLP; the Mamba mixer
-    (``ssm``, hybrid only); the attention (KV write and paged attention);
-    the head; everything else (embedding, norms, projections). Device
-    time from the window's trace, each event under the label whose host
-    range holds its launch (``kernel_audit.device_events_by_label``)."""
-    import importlib
-
+def labelled_split(targets, body, device, torch, warmup=None) -> dict:
+    """Device time of one ``body()`` (which returns its wall seconds) by
+    part: each ``(obj, attr, label)`` of ``targets`` (innermost first: a
+    device event goes to the first label whose host range holds its
+    launch) is wrapped in a profiler label for the window, and the time
+    left is ``other``. Device time from the window's trace
+    (``kernel_audit.profile_window``, opened after ``warmup()``; each event
+    under the label whose host range holds its launch)."""
     from torch.profiler import record_function
 
     from repro_torch.analysis import kernel_audit as ka
 
-    for p in prompts[:ss.max_batch]:
-        eng.submit(p, max_new_tokens=4)
-    eng.step()                                 # prefill + first decode
-    torch.cuda.synchronize()
-    targets = [(importlib.import_module(mod), fn, label)
-               for label, mod, fn in SPLIT_PARTS]
-    targets.append((eng.model, "logits", "head"))
     saved = [getattr(obj, fn) for obj, fn, _label in targets]
 
     def labelled(inner, label):
@@ -2317,21 +2385,13 @@ def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
                 return inner(*args, **kw)
         return call
 
-    def decode_step():                         # a decode step, nothing else
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     for (obj, fn, label), inner in zip(targets, saved):
         setattr(obj, fn, labelled(inner, label))
     try:
-        prof, wall = ka.profile_window(decode_step, device=eng.pool.pool.device,
-                                       warmup=eng.step)
+        prof, wall = ka.profile_window(body, device=device, warmup=warmup)
     finally:
         for (obj, fn, _label), inner in zip(targets, saved):
             setattr(obj, fn, inner)
-    eng.run()
     labels = list(dict.fromkeys(label for _o, _f, label in targets))
     events = ka.trace_events(prof)
     by_label = ka.device_events_by_label(events,
@@ -2346,21 +2406,58 @@ def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
     split = {lab: sum(float(e.get("dur", 0)) for e in by_label[lab]) / 1e3
              for lab in labels}
     split["other"] = device_ms - sum(split.values())
-    moe = eng.model.cfg.family == "moe"
-    hybrid = eng.model.cfg.family == "hybrid"
-    split = {k: v for k, v in split.items()       # the other family's FFN
-             if not k.startswith("mlp" if moe else "moe.")
-             and (hybrid or k != "ssm")}
     top = {}
     for e in device:
         top[e["name"][:70]] = top.get(e["name"][:70], 0.0) + \
             float(e.get("dur", 0)) / 1e3
-    out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
-           "host_gap_ms": wall * 1e3 - device_ms,
-           "device_busy_share": device_ms / (wall * 1e3),
-           "device_ms_by_part": split,
-           "top_device_ms": dict(sorted(top.items(),
-                                        key=lambda kv: -kv[1])[:10])}
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "host_gap_ms": wall * 1e3 - device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "device_ms_by_part": split,
+            "top_device_ms": dict(sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:10])}
+
+
+def part_targets(parts, model) -> list:
+    """``(object, function, label)`` targets of ``labelled_split`` for the
+    ``(label, module, function)`` entries of ``parts`` (a module of
+    ``None`` names a method of ``model``), and the model's head
+    (``head``)."""
+    import importlib
+
+    return [(model if mod is None else importlib.import_module(mod), fn,
+             label) for label, mod, fn in parts] + [(model, "logits", "head")]
+
+
+def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
+    """Profiler split of one full-batch decode step by part: the MoE
+    block's router (softmax and top-k), dispatch (sort, positions, the
+    buffer), expert products, combine, shared experts and the rest of it
+    (the router's product, the sum), or the dense MLP; the Mamba mixer
+    (``ssm``, hybrid only); the attention (KV write and paged attention);
+    the head; everything else (embedding, norms, projections), through
+    :func:`labelled_split`."""
+    for p in prompts[:ss.max_batch]:
+        eng.submit(p, max_new_tokens=4)
+    eng.step()                                 # prefill + first decode
+    torch.cuda.synchronize()
+
+    def decode_step():                         # a decode step, nothing else
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = labelled_split(part_targets(SPLIT_PARTS, eng.model), decode_step,
+                         eng.pool.pool.device, torch, warmup=eng.step)
+    eng.run()
+    moe = eng.model.cfg.family == "moe"
+    hybrid = eng.model.cfg.family == "hybrid"
+    split = {k: v for k, v in out["device_ms_by_part"].items()
+             if not k.startswith("mlp" if moe else "moe.")  # the other FFN
+             and (hybrid or k != "ssm")}
+    out["device_ms_by_part"] = split
+    device_ms = out["device_ms"]
     if moe:
         out["moe_ms"] = sum(v for k, v in split.items()
                             if k.startswith("moe."))
@@ -2510,6 +2607,329 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
     emit({"phase": phase, "card": card_line(torch), "runs": out})
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: the vlm and encdec families, driven directly
+# ---------------------------------------------------------------------------
+
+class DirectRun:
+    """One batch of ``ss.max_batch`` requests driven through a model's
+    ``prefill`` / ``decode_step`` on a ``PagedKVPool`` of its own (no
+    engine: the JAX package's engines feed no image and no frames, so these
+    families are driven as ``XLSTMModel`` is). Every request has
+    ``ss.prompt`` prefill positions (under ``vlm`` the image and then the
+    text; under ``encdec`` the decoder prompt, after ``inputs['frames']``)
+    anchored at prefill; decode step ``i`` is at position ``ss.prompt + i``,
+    its page added by ``extend`` and its write found by ``write_coords``."""
+
+    def __init__(self, ss: ServeSize, model, params, inputs: dict, dev,
+                 torch):
+        from repro_torch.serving.kv_cache import PagedKVPool
+
+        self.ss, self.model, self.params = ss, model, params
+        self.inputs, self.dev, self.torch = inputs, dev, torch
+        self.kv = PagedKVPool(model, n_shards=1,
+                              pages_per_shard=ss.pool_pages,
+                              page_size=ss.page, device=dev)
+        self.free0 = self.kv.alloc.free_pages
+        self.handles = [self.kv.anchor_sequence(ss.prompt, header_len=0)
+                        for _ in range(ss.max_batch)]
+        self.cross_kv = self.cur = None
+        self.pos = ss.prompt
+
+    def _dev(self, *arrays):
+        return [self.torch.from_numpy(a).to(self.dev) for a in arrays]
+
+    def prefill(self) -> list:
+        m, inp, ss = self.model, self.inputs, self.ss
+        tables, _pp = self.kv.batch_tables(self.handles, ss.pps)
+        tc = self.kv.token_coords(self.handles, ss.prompt)
+        args = (self.params, inp["tokens"], inp["text_lens"], self.kv.pool,
+                *self._dev(tables, *tc))
+        if m.cfg.family == "encdec":
+            self.cur, self.cross_kv = m.prefill(*args, inp["frames"])
+        else:
+            self.cur = m.prefill(*args, img_embeds=inp["img_embeds"])
+        self.pos = ss.prompt
+        return self.cur.tolist()                 # the step ends on a download
+
+    def step(self) -> list:
+        ss, b = self.ss, self.ss.max_batch
+        for h in self.handles:
+            self.kv.extend(h, self.pos + 1)
+        tables, page_pos = self.kv.batch_tables(self.handles, ss.pps)
+        wsh, wsl = self.kv.write_coords(self.handles, [self.pos] * b)
+        seq_lens = self.torch.full((b,), self.pos, dtype=self.torch.int32,
+                                   device=self.dev)
+        extra = () if self.cross_kv is None else (self.cross_kv,)
+        self.cur = self.model.decode_step(
+            self.params, self.cur, seq_lens, self.kv.pool,
+            *self._dev(tables, page_pos, wsh, wsl), *extra)
+        self.pos += 1
+        return self.cur.tolist()
+
+    def close(self) -> None:
+        """Release every request; all pages must come back."""
+        for h in self.handles:
+            self.kv.release(h)
+        check(self.kv.alloc.free_pages == self.free0 and
+              len(self.kv.registry) == 0,
+              f"{self.ss.arch}: pages leaked ({self.kv.alloc.free_pages} of "
+              f"{self.free0} free)")
+
+
+def direct_inputs(ss: ServeSize, cfg, dev, torch, np) -> dict:
+    """Seeded inputs of a direct run: text tokens ``[B, S_text]`` (all of
+    one length), their lengths, and the image's patch embeddings ``[B,
+    img_tokens, D]`` or the audio's frame embeddings ``[B, enc_frames,
+    D]``, float32 standard normal, as the JAX package's tests make them."""
+    rng = np.random.default_rng(ss.seed)
+    b, text = ss.max_batch, ss.prompt - cfg.img_tokens
+    out = {"tokens": torch.from_numpy(rng.integers(
+               1, cfg.vocab_size - 1, (b, text)).astype(np.int32)).to(dev),
+           "text_lens": torch.full((b,), text, dtype=torch.int32,
+                                   device=dev)}
+    if cfg.family == "vlm":
+        out["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    else:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(dev)
+    return out
+
+
+def direct_run(ss: ServeSize, model, params, inputs, dev, torch, kattn,
+               prefill_launches: dict):
+    """One prefill and ``gen - 1`` greedy decode steps; returns the run's
+    numbers, its tokens ``[batch][gen]`` and (encdec) its ``cross_kv``.
+    The kernels must launch ``prefill_launches`` at prefill and
+    ``paged_attention`` once a decoder layer a step (none at all under the
+    plain versions). Under encdec the encoder's part of the prefill
+    (``encode_anchor``) is timed on its own, synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = DirectRun(ss, model, params, inputs, dev, torch)
+    encode_s = []
+    encdec = model.cfg.family == "encdec"
+    if encdec:
+        inner = model.encode_anchor
+
+        def encode_anchor(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            encode_s.append(time.perf_counter() - t)
+            return out
+        model.encode_anchor = encode_anchor
+    kattn.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = [run.prefill()]
+        ttft = time.perf_counter() - t0
+    finally:
+        if encdec:
+            del model.encode_anchor
+    after_prefill = dict(kattn.LAUNCHES)
+    step_s = []
+    for _ in range(ss.gen - 1):
+        ts = time.perf_counter()
+        out.append(run.step())
+        step_s.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    total = ttft + sum(step_s)
+    launches = dict(kattn.LAUNCHES)
+    tag = f"{ss.arch} {model.attn_impl}"
+    layers = model.cfg.num_layers
+    want_prefill = prefill_launches if model.attn_impl == "auto" else {
+        k: 0 for k in prefill_launches}
+    want = {"flash_attention": want_prefill["flash_attention"],
+            "paged_attention": layers * (ss.gen - 1)
+            if model.attn_impl == "auto" else 0}
+    check(after_prefill == want_prefill,
+          f"{tag}: prefill launched {after_prefill}, not {want_prefill}")
+    check(launches == want, f"{tag}: the run launched {launches}, not {want}")
+    cross_kv = run.cross_kv
+    if cross_kv is not None:
+        check(bool(torch.isfinite(cross_kv).all()),
+              f"{tag}: non-finite cross_kv")
+    run.close()
+    b = ss.max_batch
+    res = dict(attn_impl=model.attn_impl, seconds=total,
+               tokens=b * ss.gen, tokens_per_s=b * ss.gen / total,
+               ttft_s=ttft, prefill_tokens_per_s=b * ss.prompt / ttft,
+               decode_step_ms={k: f(step_s) * 1e3 for k, f in (
+                   ("min", min), ("median", statistics.median),
+                   ("max", max))},
+               decode_tokens_per_s=b * len(step_s) / sum(step_s),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    if encode_s:
+        res.update(encode_s=encode_s[0], decoder_prefill_s=ttft - encode_s[0])
+    return res, [list(r) for r in zip(*out)], cross_kv
+
+
+def rows_diverged(kern_rows, ref_rows, margins, gen: int, label: str) -> list:
+    """The first token where each row of a kernel run driven directly
+    (phases 8, 18, 19) leaves the plain run's; fails unless the plain
+    run's top-2 logit margin there is below 1e-3 of the logits' spread
+    (phase 6's near-tie rule). Call 0 of ``margins`` is the prefill (the
+    first tokens), call i the decode step that gave token i."""
+    diverged = []
+    for row, (got, want) in enumerate(zip(kern_rows, ref_rows)):
+        check(len(got) == len(want) == gen, f"{label}: row {row}: wrong "
+                                            "length")
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        if first is None:
+            continue
+        margin_rows, spread_rows = margins.calls[first]
+        d = dict(row=row, token=first, kernel=got[first], plain=want[first],
+                 margin=margin_rows[row], spread=spread_rows[row])
+        diverged.append(d)
+        check(d["margin"] < 1e-3 * d["spread"],
+              f"{label}: row {row} token {first}: kernel {d['kernel']} vs "
+              f"plain {d['plain']}, plain top-2 margin {d['margin']} is not "
+              f"below 1e-3 of the spread {d['spread']}")
+    return diverged
+
+
+#: profiler labels of a direct run's parts, (label, module, function): a
+#: device event goes to the first whose host range holds its launch (the
+#: encoder's attention and MLP to ``encoder``); the head is the model's
+#: ``logits``
+VLM_PARTS = (("img_proj", None, "embed"),
+             ("mlp", "repro_torch.models.transformer", "mlp_apply"),
+             ("attention", "repro_torch.models.attention",
+              "prefill_attention"),
+             ("attention", "repro_torch.models.attention",
+              "paged_decode_attention"))
+ENCDEC_PARTS = (("encoder", None, "encode"),
+                ("cross_attention", "repro_torch.models.attention",
+                 "noncausal_attention"),
+                ("cross_attention", "repro_torch.models.attention",
+                 "dense_attention"),
+                ("mlp", "repro_torch.models.encdec", "mlp_apply"),
+                ("attention", "repro_torch.models.attention",
+                 "prefill_attention"),
+                ("attention", "repro_torch.models.attention",
+                 "paged_decode_attention"))
+
+
+def direct_splits(ss: ServeSize, parts, model, params, inputs, dev,
+                  torch) -> dict:
+    """Profiler splits (:func:`labelled_split`) of a prefill and of a
+    decode step of a fresh direct run, each window opened after one
+    prefill or step of its own (a window opened on a prefill alone lost
+    its marker kernel in a whole run on the card). A part
+    whose module is ``None`` is a method of the model: under ``vlm`` its
+    ``embed`` (``img_proj``: the image's projection, with the token lookup
+    and the concatenation), under ``encdec`` its ``encode`` (the encoder
+    under ``encode_anchor``, before the cross K/V projections)."""
+    targets = part_targets(parts, model)
+    own = set(vars(model))
+    run = DirectRun(ss, model, params, inputs, dev, torch)
+
+    def timed(fn):
+        def body():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        return body
+
+    try:
+        out = {"prefill": labelled_split(targets, timed(run.prefill), dev,
+                                         torch, warmup=run.prefill),
+               "decode_step": labelled_split(targets, timed(run.step), dev,
+                                             torch, warmup=run.step)}
+    finally:           # labelled_split leaves the bound methods on the model
+        for fn in set(vars(model)) - own:
+            delattr(model, fn)
+    run.close()
+    return out
+
+
+def direct_serve(phase: str, ss: ServeSize, dev, torch, np, kattn) -> dict:
+    """Phases 18 and 19: ``ss`` driven directly, once through the kernels
+    (``attn_impl='auto'``) and once through their plain versions
+    (``'ref'``) on the same parameters and inputs; tokens under phase 6's
+    near-tie rule, the launches of :func:`direct_run`, every page back,
+    under encdec ``cross_kv`` of both runs within ``ATTN_TOL``; profiler
+    splits of a prefill and a decode step of the kernel path. Prints one
+    line for the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = ss.config()
+    encdec = cfg.family == "encdec"
+    models = {impl: build_model(cfg, page_size=ss.page, attn_impl=impl)
+              for impl in ("auto", "ref")}
+    t0 = time.perf_counter()
+    params = models["auto"].init_params(ss.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inputs = direct_inputs(ss, cfg, dev, torch, np)
+    # a prefill attends once a layer; under encdec also once an encoder
+    # layer and once more a decoder layer (the cross-attention)
+    flash = cfg.enc_layers + 2 * cfg.num_layers if encdec else cfg.num_layers
+    prefill_launches = {"flash_attention": flash, "paged_attention": 0}
+    margins = LogitMargins(models["ref"])
+    kern, kern_rows, kern_ckv = direct_run(ss, models["auto"], params, inputs,
+                                           dev, torch, kattn,
+                                           prefill_launches)
+    ref, ref_rows, ref_ckv = direct_run(ss, models["ref"], params, inputs,
+                                        dev, torch, kattn, prefill_launches)
+    tag = f"{phase} {ss.arch}"
+    diverged = rows_diverged(kern_rows, ref_rows, margins, ss.gen,
+                             f"{tag} kernel vs plain")
+    entry = {"arch": ss.arch, "card": card_line(torch), "family": cfg.family,
+             "layers": cfg.num_layers, "params": cfg.param_count(),
+             "param_gb": cfg.param_count() * 4 / 1e9, "param_init_s": init_s,
+             "requests": ss.max_batch, "prefill_positions": ss.prompt,
+             "text_tokens": ss.prompt - cfg.img_tokens, "gen": ss.gen,
+             "page": ss.page, "pool_pages": ss.pool_pages,
+             "identical_tokens": not diverged, "diverged": diverged,
+             "prefill_launches": prefill_launches}
+    if cfg.family == "vlm":
+        entry["img_tokens"] = cfg.img_tokens
+    if ss.layers:
+        entry["reduced"] = {"num_layers": [ss.layers,
+                                           get_config(ss.arch).num_layers]}
+    if encdec:
+        err = float((kern_ckv - ref_ckv).abs().max())
+        close = torch.allclose(kern_ckv, ref_ckv, **ATTN_TOL)
+        entry.update(enc_layers=cfg.enc_layers, enc_frames=cfg.enc_frames,
+                     cross_kv_shape=list(kern_ckv.shape),
+                     cross_kv_gb=kern_ckv.numel() * 4 / 1e9,
+                     cross_kv={"tol": ATTN_TOL, "close": close,
+                               "max_abs_err": err,
+                               "max_abs_ref": float(ref_ckv.abs().max())})
+        check(close, f"{tag}: cross_kv of the kernel run differs from the "
+                     f"plain run's (max abs err {err})")
+    del kern_ckv, ref_ckv
+    splits = direct_splits(ss, ENCDEC_PARTS if encdec else VLM_PARTS,
+                           models["auto"], params, inputs, dev, torch)
+    step = splits["decode_step"]
+    if encdec:
+        step["cross_attention_share_of_device"] = \
+            step["device_ms_by_part"]["cross_attention"] / step["device_ms"]
+        check(splits["prefill"]["device_ms_by_part"]["encoder"] > 0 and
+              step["device_ms_by_part"]["cross_attention"] > 0,
+              f"{tag}: the split shows no encoder or cross-attention")
+    else:
+        check(splits["prefill"]["device_ms_by_part"]["img_proj"] > 0,
+              f"{tag}: the prefill's split shows no img_proj product")
+    check(step["device_ms_by_part"]["attention"] > 0 and
+          step["device_ms_by_part"]["head"] > 0,
+          f"{tag}: the step's split shows no attention or head")
+    entry.update(kernels=kern, plain=ref, splits=splits)
+    emit({"phase": phase, **entry})
+    del models, params, inputs, margins
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -2776,16 +3196,8 @@ def xlstm_serve(xs: XlstmSize, dev, torch, np, kmlstm):
     del kern_state, ref_state, y_state, ctl_state
     ratios = {r: max(e[r] for e in state_err.values())
               for r in ("kernel_ratio", "bf16_control_ratio")}
-    diverged = []
-    for row, (got, want) in enumerate(zip(kern_rows, ref_rows)):
-        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                     None)
-        if first is not None:
-            margin_rows, spread_rows = margins.calls[first]
-            diverged.append(dict(row=row, token=first,
-                                 kernel=got[first], plain=want[first],
-                                 margin=margin_rows[row],
-                                 spread=spread_rows[row]))
+    diverged = rows_diverged(kern_rows, ref_rows, margins, xs.gen,
+                             "xlstm_serve kernel vs plain")
     emit({"phase": "xlstm_serve", "arch": xs.arch,
           "params": cfg.param_count(), "param_init_s": init_s,
           "mlstm_blocks": n_mlstm, "slstm_blocks": models["auto"].n_slstm,
@@ -2807,13 +3219,6 @@ def xlstm_serve(xs: XlstmSize, dev, torch, np, kmlstm):
     check(any(e.get("bf16_control_flagged") for e in state_err.values()),
           "the state rule passes the bfloat16-input control: it cannot "
           "tell a faulty scan from a sound one")
-    for row, (got, want) in enumerate(zip(kern_rows, ref_rows)):
-        check(len(got) == len(want) == xs.gen, f"row {row}: wrong length")
-    for d in diverged:
-        check(d["margin"] < 1e-3 * d["spread"],
-              f"row {d['row']} token {d['token']}: kernel {d['kernel']} vs "
-              f"plain {d['plain']}, plain top-2 margin {d['margin']} is not "
-              f"below 1e-3 of the spread {d['spread']}")
     del params
     torch.cuda.empty_cache()
     return kern_run
@@ -3060,7 +3465,8 @@ def card_line(torch) -> str:
 
 
 def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
-           tt, hs: ServeSize = HYBRID_RUNS[0]):
+           tt, hs: ServeSize = HYBRID_RUNS[0], vs: ServeSize = VLM_RUN,
+           es: ServeSize = ENCDEC_RUN):
     rng = np.random.default_rng(29)
     mm = size.meta_max
     rate = peak_ops_per_s(torch, INT32_OPS_PER_SM_CLOCK)
@@ -3208,6 +3614,53 @@ def timing(size: Size, ss: ServeSize, xs: XlstmSize, dev, torch, np, ops,
         function_flop=flops,
         fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
     del fq, fk, fv, pc, band
+    # both at the shapes of phases 18-19 (rows marked ``shape_of``): the
+    # decode step of internvl2 (GQA 64/8 of 128) and of whisper (16/16 of
+    # 64), internvl2's prefill (causal) and whisper's two non-causal
+    # prefill calls over the keys noncausal_attention pads (the encoder's
+    # 1500 frames and the decoder's prompt over 1536 keys); the bound
+    # counts the whole Sq x Skv rectangle, and SDPA (float32, non-causal)
+    # computes the same function
+    for phase, run in (("vlm_serve", vs), ("encdec_serve", es)):
+        rcfg = run.config()
+        pc, label, flops, nbytes = paged_timing_case(run, rcfg, gen, dev,
+                                                     torch)
+        entry("paged_attention", label,
+              lambda: ops.paged_attention(*pc, impl="cuda"),
+              lambda: ops.paged_attention(*pc, impl="ref"),
+              (nbytes, flops), ops_rate=frate).update(shape_of=phase)
+        del pc
+    vcfg = vs.config()
+    (fq, fk, fv), label, flops, nbytes = flash_timing_case(vs, vcfg, gen, dev,
+                                                           torch)
+    entry("flash_attention", label,
+          lambda: ops.flash_attention(fq, fk, fv, impl="cuda"),
+          lambda: ops.flash_attention(fq, fk, fv, impl="ref"),
+          (nbytes, TF32_SPLIT_PASSES * flops),
+          lib_fn=lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True),
+          ops_rate=trate)
+    out["flash_attention"][-1].update(
+        shape_of="vlm_serve", function_flop=flops,
+        fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
+    del fq, fk, fv
+    for name, shape in encdec_flash_shapes(es, es.config()).items():
+        fq, fk, fv = flash_case(gen, dev, torch, **shape)
+        flops = 4 * shape["b"] * shape["hq"] * shape["hd"] * shape["s"] * \
+            shape["skv"]
+        nbytes = 4 * 2 * (fq.numel() + fk.numel())
+        entry("flash_attention",
+              f"{es.arch} {name} B={shape['b']} Sq={shape['s']} "
+              f"Skv={shape['skv']} non-causal",
+              lambda: ops.flash_attention(fq, fk, fv, causal=False,
+                                          impl="cuda"),
+              lambda: ops.flash_attention(fq, fk, fv, causal=False,
+                                          impl="ref"),
+              (nbytes, TF32_SPLIT_PASSES * flops),
+              lib_fn=lambda: sdpa(fq, fk, fv), ops_rate=trate)
+        out["flash_attention"][-1].update(
+            shape_of="encdec_serve", function_flop=flops,
+            fp32_fma_bound_ms=bound(nbytes, flops, frate)[0])
+        del fq, fk, fv
     # mlstm_scan: one mLSTM block of the xLSTM prefill
     mc, label, flops, nbytes = mlstm_timing_case(xs, gen, dev, torch)
     c = xs.chunk
@@ -3667,7 +4120,8 @@ def main() -> int:
                            kmlstm)
     ss = ServeSize()
     cfg = get_config(ss.arch)
-    served = [(s, s.config()) for s in MOE_RUNS + DENSE_RUNS + HYBRID_RUNS]
+    served = [(s, s.config()) for s in MOE_RUNS + DENSE_RUNS + HYBRID_RUNS
+              + (VLM_RUN, ENCDEC_RUN)]
     apar = timed("attn_parity", attn_parity, ss, cfg, dev, torch, ops,
                  ATTN_KERNELS, served)
     srv_state = timed("serve", serve, ss, dev, torch, np, kattn)
@@ -3682,6 +4136,10 @@ def main() -> int:
                 for phase, runs in (("moe_serve", MOE_RUNS),
                                     ("dense_configs", DENSE_RUNS),
                                     ("hybrid_serve", HYBRID_RUNS))}
+    direct = {phase: timed(phase, direct_serve, phase, run, dev, torch, np,
+                           kattn)
+              for phase, run in (("vlm_serve", VLM_RUN),
+                                 ("encdec_serve", ENCDEC_RUN))}
     xs = XlstmSize()
     mpar = timed("mlstm_parity", mlstm_parity, xs, get_config(xs.arch), dev,
                  torch, ops)
@@ -3712,9 +4170,17 @@ def main() -> int:
             extra["config_launches"] = {
                 arch: r["kernels"]["launches"][name]
                 for runs in cfg_runs.values() for arch, r in runs.items()}
-            extra["windowed"] = {k: tim[name][-1][k] for k in (
-                "variant", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            extra["config_launches"].update(
+                {r["arch"]: r["kernels"]["launches"][name]
+                 for r in direct.values()})
+            row_keys = ("variant", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")
+            extra["windowed"] = {k: next(
+                r for r in tim[name] if "window=" in r["variant"])[k]
+                for k in row_keys}
+            extra["direct_shapes"] = [
+                {k: r[k] for k in ("shape_of",) + row_keys}
+                for r in tim[name] if "shape_of" in r]
         extra["bench_launches"] = bench_launches[name]
         kernels.append({
             "name": name, "route": "cuda",

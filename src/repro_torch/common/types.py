@@ -103,3 +103,10 @@ class ModelConfig:
         from repro_torch.models.registry import count_params_from_config
 
         return count_params_from_config(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token reaches: a ``moe`` config's ``top_k`` routed
+        experts, not all of them."""
+        from repro_torch.models.registry import count_params_from_config
+
+        return count_params_from_config(self, active_only=True)

@@ -1,12 +1,9 @@
 """Architecture config registry of the port.
 
-The same modules as the JAX package's ``repro.configs``, copied: each exports
-``CONFIG`` (the published configuration) and ``reduced()`` (a small
-same-family config for CPU tests). Here are the dense, ``moe`` and
-``hybrid`` configs that the serving engines serve and the ``ssm`` config
-xlstm-350m, which ``XLSTMModel`` runs; the ``vlm`` and ``encdec``
-architectures wait for their model families (``ROADMAP.md``, queue 1,
-items 2 and 3).
+The same modules as the JAX package's ``repro.configs``, copied, in the
+same order: each exports ``CONFIG`` (the published configuration) and
+``reduced()`` (a small same-family config for CPU tests).
+``get_config(name)`` / ``get_reduced(name)`` look them up.
 """
 from __future__ import annotations
 
@@ -22,25 +19,19 @@ _ARCH_MODULES = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo",
     "hymba-1.5b": "repro_torch.configs.hymba",
     "xlstm-350m": "repro_torch.configs.xlstm",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe",
+    "internvl2-76b": "repro_torch.configs.internvl2",
     # the paper's own scenario: a tiny router/proxy LM used by the serving
     # examples and benchmarks (not part of the 10-arch assignment)
     "libra-proxy-125m": "repro_torch.configs.libra_proxy",
 }
 
-#: architectures of the JAX package whose model family is not ported yet,
-#: each with its item in ``ROADMAP.md``, queue 1
-NOT_PORTED = {"internvl2-76b": 2, "whisper-medium": 3}
-
 ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "libra-proxy-125m"]
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP.md, queue 1, item "
-            f"{NOT_PORTED[name]})")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])

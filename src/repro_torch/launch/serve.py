@@ -40,7 +40,10 @@ from repro_torch.serving.engine import (
     StaticEngine,
 )
 
-#: the families the engines serve: xlstm-350m (``ssm``) has no KV cache
+#: the families the engines serve: xlstm-350m (``ssm``) has no KV cache,
+#: and the engines feed ``vlm`` no image and ``encdec`` no frames, as the
+#: JAX package's cannot (``ROADMAP.md``, F3): internvl2-76b and
+#: whisper-medium are driven through ``prefill`` / ``decode_step``
 SERVED_FAMILIES = ("dense", "moe", "hybrid")
 ENGINES = {"libra": LibraEngine, "standard": StandardEngine,
            "copier": CopierEngine, "static": StaticEngine}

@@ -13,6 +13,10 @@ the pages of the others are neither written nor read, as in JAX.
   ``arange(S)``, optionally over a sliding window, through
   ``ops.flash_attention`` (the JAX package computes the same function
   with ``dense_attention`` / ``blockwise_attention``).
+* ``noncausal_attention`` — the encoder-decoder's encoder self-attention
+  and cross-attention: every query over every key, ``Sq`` and ``Skv``
+  free, through ``ops.flash_attention(causal=False)``, with the zero keys
+  the JAX package's blockwise branch adds (:func:`blockwise_kv_pad`).
 * ``paged_decode_attention`` — the Libra fast path: write the incoming
   token's K/V into its anchored page, then attend over the anchored pages
   (optionally over a sliding window) in place through
@@ -80,6 +84,48 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(),
                               causal=True, window=window, impl=impl)
+    return out.transpose(1, 2)
+
+
+#: the JAX package's encoder-decoder attends with ``blockwise_attention``
+#: above this many queries or keys, with ``dense_attention`` up to it
+#: (``repro/models/encdec.py:109-112``, 274-279)
+BLOCKWISE_ABOVE = 1024
+#: ``blockwise_attention``'s default key chunk
+BLOCKWISE_KV_CHUNK = 512
+
+
+def blockwise_kv_pad(sq: int, skv: int) -> int:
+    """Zero key rows the JAX package's non-causal attention of ``sq``
+    queries over ``skv`` keys attends to beyond the real ones.
+
+    Above :data:`BLOCKWISE_ABOVE` it takes ``blockwise_attention``, whose
+    ``_blockwise_fwd_impl`` pads K/V with zero rows up to a multiple of
+    its key chunk, ``min(512, Skv)``, and gives them position ``2**30``
+    (``repro/models/attention.py:150-158``). Its mask (``_mask_bias``)
+    keeps a key by causality and window only, so a non-causal call keeps
+    the padded keys: each adds ``exp(0 - m)`` to the softmax denominator
+    and nothing to the numerator (a fault of the reference, carried; at
+    whisper's 1500 frames 36 such keys of 1536). A causal call masks them
+    at ``2**30``, so this is for non-causal calls only."""
+    if max(sq, skv) <= BLOCKWISE_ABOVE:
+        return 0
+    return -skv % min(BLOCKWISE_KV_CHUNK, skv)
+
+
+def noncausal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, impl: str = "auto") -> torch.Tensor:
+    """Every query over every key: q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd] ->
+    [B,Sq,Hq,hd], through ``ops.flash_attention(causal=False)`` on the
+    ``[B, H, S, hd]`` layout, where the JAX package takes
+    ``dense_attention`` / ``blockwise_attention``. The keys are first
+    padded with :func:`blockwise_kv_pad`'s zero rows, so that the function
+    is the JAX package's on either of its branches."""
+    pad = blockwise_kv_pad(q.shape[1], k.shape[1])
+    k, v = (torch.nn.functional.pad(t.transpose(1, 2), (0, 0, 0, pad))
+            .contiguous() for t in (k, v))
+    out = ops.flash_attention(q.transpose(1, 2).contiguous(), k, v,
+                              causal=False, impl=impl)
     return out.transpose(1, 2)
 
 

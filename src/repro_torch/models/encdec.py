@@ -1,0 +1,299 @@
+"""Whisper-style encoder-decoder (whisper-medium), serving path.
+
+PyTorch twin of the serving half of the JAX package's
+``repro.models.encdec.EncDecModel``. The conv/audio frontend is a stub, as
+there: ``frames [B, enc_frames, D]`` are precomputed frame embeddings. The
+encoder output, projected once per decoder layer into cross-attention
+K/V (:meth:`EncDecModel.encode_anchor`), is the bulk payload: it is
+computed once, stays on the device as ``cross_kv``, and every decode step
+reads it in place. Decoder self-attention uses the paged pool of the
+decoder-only models.
+
+Every prefill attention goes through ``ops.flash_attention``: the
+decoder's causal self-attention through ``attention.prefill_attention``,
+the encoder's self-attention and the cross-attention through
+``attention.noncausal_attention`` (the JAX package uses
+``dense_attention`` / ``blockwise_attention``; the zero keys its blockwise
+branch adds are added there too). A decode step attends to its pages
+through ``ops.paged_attention`` and to ``cross_kv`` with
+``dense_attention``, as the JAX package does. Positions are sinusoidal,
+added to the embeddings; a decode step computes only the rows at
+``seq_lens`` (``layers.sinusoidal_rows``), where the JAX package builds a
+table of ``2 ** 20`` rows every step. Parameters are the JAX package's
+nested dict, layers stacked on a leading axis; layers run in a Python
+loop. Computation is float32. ``forward`` / ``decode_stack`` / ``loss_fn``
+are training (``ROADMAP.md``, queue 1, item 4).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.common.types import ModelConfig
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    ParamSpec,
+    count_template_params,
+    init_params,
+    mlp_apply,
+    mlp_template,
+    rms_norm,
+    sinusoidal_positions,
+    sinusoidal_rows,
+    tree_map,
+)
+from repro_torch.models.transformer import stack_template
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+class EncDecModel:
+    def __init__(self, cfg: ModelConfig, page_size: int = 64,
+                 attn_impl: str = "auto"):
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: EncDecModel serves the encdec "
+                             f"family, not {cfg.family!r}")
+        if attn_impl not in IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
+                             f"one of {IMPLS})")
+        self.cfg = cfg
+        self.page_size = page_size
+        #: ``ops`` impl of the attention kernels: 'auto' runs the CUDA
+        #: kernels on CUDA tensors, 'ref' the plain versions anywhere
+        self.attn_impl = attn_impl
+
+    # -- params -----------------------------------------------------------
+    def _attn_tmpl(self) -> Dict:
+        c = self.cfg
+        return {
+            "wq": ParamSpec((c.d_model, c.q_dim), ("fsdp", "tensor")),
+            "wo": ParamSpec((c.q_dim, c.d_model), ("tensor", "fsdp")),
+            "wk": ParamSpec((c.d_model, c.kv_dim), ("fsdp", "tensor")),
+            "wv": ParamSpec((c.d_model, c.kv_dim), ("fsdp", "tensor")),
+        }
+
+    def enc_layer_template(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln1": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "attn": self._attn_tmpl(),
+            "ln2": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "mlp": mlp_template(c.d_model, c.d_ff, "gelu"),
+        }
+
+    def dec_layer_template(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln1": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "self_attn": self._attn_tmpl(),
+            "ln_x": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "cross_attn": self._attn_tmpl(),
+            "ln2": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "mlp": mlp_template(c.d_model, c.d_ff, "gelu"),
+        }
+
+    def template(self) -> Dict:
+        c = self.cfg
+        return {
+            "embed": ParamSpec((c.vocab_size, c.d_model), ("tensor", None),
+                               fan_in_dims=(1,)),
+            "enc_final_norm": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "dec_final_norm": ParamSpec((c.d_model,), (None,), init="zeros"),
+            "enc_layers": stack_template(self.enc_layer_template(),
+                                         c.enc_layers),
+            "dec_layers": stack_template(self.dec_layer_template(),
+                                         c.num_layers),
+        }
+
+    def init_params(self, seed: int, *, device="cuda"):
+        """Random parameters from ``seed`` on ``device`` (a
+        ``torch.Generator`` on that device draws them)."""
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return init_params(gen, self.template(), device=device)
+
+    def param_count(self) -> int:
+        return count_template_params(self.template())
+
+    # -- attention helper ---------------------------------------------------
+    def _heads(self, x: torch.Tensor, w: torch.Tensor, heads: int):
+        """``x @ w`` split into ``heads`` heads: [B, S, heads, hd]."""
+        b, s, _ = x.shape
+        return (x @ w).reshape(b, s, heads, self.cfg.head_dim)
+
+    def _mha(self, p, hq: torch.Tensor, hkv: torch.Tensor) -> torch.Tensor:
+        """Non-causal attention of ``hq [B, Sq, D]`` over ``hkv [B, Skv,
+        D]`` with the projections ``p``, through
+        ``attention.noncausal_attention`` (the encoder's self-attention;
+        the decoder's causal use is training's)."""
+        c = self.cfg
+        out = attn.noncausal_attention(
+            self._heads(hq, p["wq"], c.num_heads),
+            self._heads(hkv, p["wk"], c.num_kv_heads),
+            self._heads(hkv, p["wv"], c.num_kv_heads), impl=self.attn_impl)
+        return out.reshape(*hq.shape[:2], c.q_dim) @ p["wo"]
+
+    def _mlp_residual(self, lp, x: torch.Tensor) -> torch.Tensor:
+        h2 = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
+        return x + mlp_apply(lp["mlp"], h2, "gelu")
+
+    # -- encode ---------------------------------------------------------------
+    @torch.no_grad()
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, F, D] (precomputed frontend embeddings) -> encoder
+        output [B, F, D]: sinusoidal positions added, ``enc_layers``
+        pre-norm blocks of non-causal self-attention and a GELU MLP, then
+        the final norm."""
+        c = self.cfg
+        f = frames.shape[1]
+        x = frames + sinusoidal_positions(f, c.d_model,
+                                          frames.device)[None].to(frames.dtype)
+        for li in range(c.enc_layers):
+            lp = _layer(params["enc_layers"], li)
+            h = rms_norm(x, lp["ln1"], c.norm_eps)
+            x = x + self._mha(lp["attn"], h, h)
+            x = self._mlp_residual(lp, x)
+        return rms_norm(x, params["enc_final_norm"], c.norm_eps)
+
+    # -- serving --------------------------------------------------------------
+    def kv_pool_shape(self, total_pages: int) -> Tuple[int, ...]:
+        c = self.cfg
+        return (c.num_layers, total_pages, self.page_size, 2, c.num_kv_heads,
+                c.head_dim)
+
+    def cross_kv_shape(self, batch: int) -> Tuple[int, ...]:
+        c = self.cfg
+        return (c.num_layers, batch, c.enc_frames, 2, c.num_kv_heads,
+                c.head_dim)
+
+    def logits(self, params, hidden: torch.Tensor,
+               weight_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden`` through the tied embedding; with
+        ``weight_dtype`` its weights are first rounded to that dtype (and
+        computed with in ``hidden``'s). :meth:`decode_step` passes
+        bfloat16: the JAX package's calls ``logits`` without
+        ``compute_dtype``, whose default is bfloat16 (a fault of the
+        reference, carried so that tokens agree)."""
+        w = params["embed"]
+        if weight_dtype is not None:
+            w = w.to(weight_dtype).to(hidden.dtype)
+        return hidden @ w.T
+
+    @torch.no_grad()
+    def encode_anchor(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Ingress for the audio payload: encode once and project the
+        cross-attention K/V of every decoder layer, ``cross_kv [L, B, F,
+        2, Hkv, hd]`` (:meth:`cross_kv_shape`), kept on the device."""
+        c = self.cfg
+        enc = self.encode(params, frames)
+        b, f, _ = enc.shape
+        cross_kv = enc.new_empty((c.num_layers, b, f, 2, c.num_kv_heads,
+                                  c.head_dim))
+        for li in range(c.num_layers):
+            p = _layer(params["dec_layers"], li)["cross_attn"]
+            cross_kv[li, :, :, 0] = self._heads(enc, p["wk"], c.num_kv_heads)
+            cross_kv[li, :, :, 1] = self._heads(enc, p["wv"], c.num_kv_heads)
+        return cross_kv
+
+    @torch.no_grad()
+    def prefill(
+        self,
+        params,
+        tokens: torch.Tensor,       # [B, S] decoder prompt
+        seq_lens: torch.Tensor,     # [B]
+        pool: torch.Tensor,         # [L, P, page, 2, Hkv, hd], updated in place
+        tables: torch.Tensor,       # [B, n_shards, pps]
+        token_shard: torch.Tensor,  # [B, S]
+        token_slot: torch.Tensor,
+        token_off: torch.Tensor,
+        token_valid: torch.Tensor,
+        frames: torch.Tensor,       # [B, enc_frames, D]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Ingress: anchor the audio payload (:meth:`encode_anchor`) and
+        the decoder prompt's self-attention K/V pages (in place), and
+        return ``(first_tokens [B] int32, cross_kv)``; the JAX package
+        returns the new pool as well. The first token is sampled at
+        ``seq_lens - 1``."""
+        c = self.cfg
+        cross_kv = self.encode_anchor(params, frames)
+        x = params["embed"][tokens.long()]                      # [B, S, D]
+        b, s, _ = x.shape
+        x = x + sinusoidal_positions(s, c.d_model, x.device)[None]
+        widx = attn.prefill_write_index(tables, token_shard, token_slot,
+                                        token_off, token_valid)
+        for li in range(c.num_layers):
+            lp = _layer(params["dec_layers"], li)
+            sp, xp = lp["self_attn"], lp["cross_attn"]
+            h = rms_norm(x, lp["ln1"], c.norm_eps)
+            q = self._heads(h, sp["wq"], c.num_heads)
+            k = self._heads(h, sp["wk"], c.num_kv_heads)
+            v = self._heads(h, sp["wv"], c.num_kv_heads)
+            attn.prefill_write_pages(k, v, pool[li], tables, token_shard,
+                                     token_slot, token_off, token_valid,
+                                     write_index=widx)
+            out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
+            x = x + out.reshape(b, s, c.q_dim) @ sp["wo"]
+            hx = rms_norm(x, lp["ln_x"], c.norm_eps)
+            ox = attn.noncausal_attention(
+                self._heads(hx, xp["wq"], c.num_heads), cross_kv[li, :, :, 0],
+                cross_kv[li, :, :, 1], impl=self.attn_impl)
+            x = x + ox.reshape(b, s, c.q_dim) @ xp["wo"]
+            x = self._mlp_residual(lp, x)
+        idx = (seq_lens.long() - 1).clamp(min=0)
+        last = x[torch.arange(b, device=x.device), idx]         # [B, D]
+        last = rms_norm(last, params["dec_final_norm"], c.norm_eps)
+        first = self.logits(params, last).argmax(dim=-1).to(torch.int32)
+        return first, cross_kv
+
+    @torch.no_grad()
+    def decode_step(
+        self,
+        params,
+        tokens: torch.Tensor,       # [B] current token ids
+        seq_lens: torch.Tensor,     # [B] position of the incoming token
+        pool: torch.Tensor,         # [L, P, page, 2, Hkv, hd], updated in place
+        tables: torch.Tensor,       # [B, n_shards, pps]
+        page_pos: torch.Tensor,     # [B, n_shards, pps]
+        write_shard: torch.Tensor,  # [B]
+        write_slot: torch.Tensor,   # [B]
+        cross_kv: torch.Tensor,     # [L, B, F, 2, Hkv, hd]
+    ) -> torch.Tensor:
+        """One decoder token: paged self-attention (the token's K/V
+        written into its page in place) and cross-attention over the
+        anchored ``cross_kv``, read in place. Returns next_tokens [B]
+        int32; the JAX package returns the new pool as well."""
+        c = self.cfg
+        x = params["embed"][tokens.long()]                      # [B, D]
+        x = x + sinusoidal_rows(seq_lens, c.d_model).to(x.dtype)
+        b = x.shape[0]
+        f = cross_kv.shape[2]
+        pos_f = torch.arange(f, device=x.device).expand(b, f)
+        widx = attn.decode_write_index(tables, page_pos, seq_lens,
+                                       write_shard, write_slot, pool.shape[2])
+        for li in range(c.num_layers):
+            lp = _layer(params["dec_layers"], li)
+            sp, xp = lp["self_attn"], lp["cross_attn"]
+            h = rms_norm(x, lp["ln1"], c.norm_eps)[:, None]     # [B, 1, D]
+            out = attn.paged_decode_attention(
+                self._heads(h, sp["wq"], c.num_heads)[:, 0],
+                self._heads(h, sp["wk"], c.num_kv_heads)[:, 0],
+                self._heads(h, sp["wv"], c.num_kv_heads)[:, 0], pool[li],
+                tables, page_pos, seq_lens, write_shard, write_slot,
+                impl=self.attn_impl, write_index=widx)
+            x = x + out.reshape(b, c.q_dim) @ sp["wo"]
+            hx = rms_norm(x, lp["ln_x"], c.norm_eps)[:, None]
+            ox = attn.dense_attention(
+                self._heads(hx, xp["wq"], c.num_heads), cross_kv[li, :, :, 0],
+                cross_kv[li, :, :, 1], seq_lens[:, None], pos_f,
+                causal=False)[:, 0]
+            x = x + ox.reshape(b, c.q_dim) @ xp["wo"]
+            x = self._mlp_residual(lp, x)
+        x = rms_norm(x, params["dec_final_norm"], c.norm_eps)
+        return self.logits(params, x, weight_dtype=torch.bfloat16
+                           ).argmax(dim=-1).to(torch.int32)

@@ -1,5 +1,5 @@
-"""Shared model primitives: param templates, norms, RoPE, MLPs, the causal
-depthwise conv of the xLSTM blocks.
+"""Shared model primitives: param templates, norms, RoPE, sinusoidal
+positions, MLPs, the causal depthwise conv of the xLSTM blocks.
 
 PyTorch twins of the JAX package's ``repro.models.layers``. A ``ParamSpec``
 template is the single source of truth per architecture: ``init_params``
@@ -100,6 +100,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (x * (1.0 + w.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with weight ``w`` and bias ``b``; population variance,
+    as ``jnp.var``."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
 def group_norm(x: torch.Tensor, w: torch.Tensor, num_groups: int,
                eps: float = 1e-5) -> torch.Tensor:
     """Per-head group norm used by xLSTM cells. x [..., H*dh] grouped by H;
@@ -138,6 +150,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
+
+
+def sinusoidal_rows(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Rows ``positions`` of :func:`sinusoidal_positions`' table, shaped
+    ``positions.shape + (d_model,)``, without building the table: each row
+    depends only on its position (``sin`` at the even columns, ``cos`` at
+    the odd ones). The encoder-decoder's decode step takes its rows at
+    ``seq_lens`` so, where the JAX package builds ``2 ** 20`` rows a step
+    and indexes them."""
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / d_model))
+    ang = positions.float()[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)],
+                       dim=-1).reshape(*positions.shape, d_model)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """The ``[length, d_model]`` float32 table of sinusoidal positions."""
+    return sinusoidal_rows(torch.arange(length, device=device), d_model)
 
 
 # ---------------------------------------------------------------------------

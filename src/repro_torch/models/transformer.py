@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, ``moe`` and ``hybrid`` families, serving
-path.
+"""Decoder-only LM of the dense, ``moe``, ``hybrid`` and ``vlm`` families,
+serving path.
 
 PyTorch twin of the JAX package's ``repro.models.transformer.TransformerLM``
 for ``family == "dense"`` (phi3, phi4, minicpm, mistral-nemo, the
@@ -9,9 +9,13 @@ positions included, at the serving paths' ``capacity_factor=2.0``) and
 ``family == "hybrid"`` (hymba: each layer runs a Mamba mixer,
 ``models/ssm``, beside its attention on the same normed input and adds
 the mean of the two branches, each RMS-normed; attention is windowed on
-every layer but the config's global ones, see :func:`layer_groups`).
-Serving follows the Libra datapath: ``prefill`` anchors KV into pool pages
-in place (ingress) and attends through ``ops.flash_attention``;
+every layer but the config's global ones, see :func:`layer_groups`)
+and ``family == "vlm"`` (internvl2: :meth:`TransformerLM.embed` puts the
+image's patch embeddings, projected by ``img_proj``, in front of the
+text, and :meth:`TransformerLM.prefill` anchors both; see its docstring
+for the positions ``seq_lens`` counts). Serving follows the Libra
+datapath: ``prefill`` anchors KV into pool pages in place (ingress) and
+attends through ``ops.flash_attention``;
 ``decode_step`` reads the pages via block-table metadata through
 ``ops.paged_attention`` and returns *only sampled token ids*. The
 standard-stack baseline of the other engines is ``prefill_dense`` (the
@@ -22,8 +26,8 @@ JAX package's nested dict, layers stacked on a leading axis; the large
 products stay ``torch.matmul``, as they are plain XLA dots there. Layers
 run in a Python loop (the JAX package scans them). Computation is float32.
 
-The ``vlm`` and ``encdec`` families and training are not ported yet
-(``ROADMAP.md``, queue 1, items 2 to 4).
+The ``encdec`` family is ``models/encdec.EncDecModel``. Training is not
+ported yet (``ROADMAP.md``, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -48,9 +52,9 @@ from repro_torch.models.layers import (
     tree_map,
 )
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
-#: the families left, each with its item in ``ROADMAP.md``, queue 1
-UNPORTED_FAMILIES = {"vlm": 2, "encdec": 3}
+#: the families this model serves (``registry.build_model`` builds the
+#: others' models)
+FAMILIES = ("dense", "moe", "hybrid", "vlm")
 
 
 def stack_template(tmpl: Dict, n: int) -> Dict:
@@ -102,11 +106,9 @@ def layer_params(params, i: int):
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, page_size: int = 64,
                  attn_impl: str = "auto"):
-        if cfg.family not in PORTED_FAMILIES:
-            item = UNPORTED_FAMILIES.get(cfg.family)
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet"
-                + (f" (ROADMAP.md, queue 1, item {item})" if item else ""))
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: TransformerLM serves the families "
+                             f"{FAMILIES}, not {cfg.family!r}")
         if attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
                              f"one of {IMPLS})")
@@ -158,6 +160,10 @@ class TransformerLM:
         if not c.tie_embeddings:
             t["lm_head"] = ParamSpec((c.d_model, c.vocab_size),
                                      ("fsdp", "tensor"))
+        if c.family == "vlm":
+            # projection stub applied to precomputed patch embeddings
+            t["img_proj"] = ParamSpec((c.d_model, c.d_model),
+                                      ("fsdp", "tensor"))
         return t
 
     def init_params(self, seed: int, *, device="cuda"):
@@ -174,8 +180,23 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # shared pieces
     # ------------------------------------------------------------------
-    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+    def embed(self, params, tokens: torch.Tensor,
+              img_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The prompt's embeddings ``[B, S, D]``. Under ``vlm`` the image
+        comes first: ``img_embeds [B, img_tokens, D]`` (precomputed patch
+        embeddings) times ``img_proj``, then the text's ``S_text`` tokens;
+        it is required there (``ValueError`` without it, where the JAX
+        package asserts) and refused elsewhere."""
+        x = params["embed"][tokens.long()]
+        if self.cfg.family != "vlm":
+            if img_embeds is not None:
+                raise ValueError(f"{self.cfg.name}: img_embeds is for the "
+                                 "vlm family")
+            return x
+        if img_embeds is None:
+            raise ValueError(f"{self.cfg.name}: vlm needs patch embeddings")
+        img = img_embeds @ params["img_proj"]
+        return torch.cat([img.to(x.dtype), x], dim=1)
 
     def logits(self, params, hidden: torch.Tensor,
                weight_dtype=None) -> torch.Tensor:
@@ -282,7 +303,7 @@ class TransformerLM:
         if (ssm_state is not None) != hybrid:
             raise ValueError(f"{c.name}: ssm_state is for the hybrid "
                              "family's decode step, and it needs one")
-        x = self.embed(params, tokens)                          # [B, D]
+        x = params["embed"][tokens.long()]                      # [B, D]
         b = x.shape[0]
         widx = attn.decode_write_index(tables, page_pos, seq_lens,
                                        write_shard, write_slot, pool.shape[2])
@@ -319,15 +340,28 @@ class TransformerLM:
         token_slot: torch.Tensor,
         token_off: torch.Tensor,
         token_valid: torch.Tensor,
+        *,
+        img_embeds: Optional[torch.Tensor] = None,  # vlm only
     ) -> torch.Tensor:
         """Ingress: run the prompt, anchor its KV into pool pages in place,
         return the first sampled tokens [B] int32. Only token ids ever
         surface to the host. Under ``hybrid`` the Mamba mixers' final
         states are dropped, as in the JAX model: prefill writes no
         ``ssm_state``, so a request's decode starts from whatever its
-        batch row holds (a fault of the reference, carried)."""
+        batch row holds (a fault of the reference, carried).
+
+        Under ``vlm`` the prompt is the image's ``img_tokens`` positions
+        (``img_embeds [B, img_tokens, D]``, see :meth:`embed`) and then
+        ``tokens [B, S_text]``: the token coordinates ``token_shard`` ...
+        ``token_valid`` span ``[B, img_tokens + S_text]``, and all of it
+        is anchored. ``seq_lens`` counts text tokens only; the first token
+        is sampled at position ``img_tokens + seq_lens - 1``, as in the
+        JAX model. The decode steps that follow take the prefix-inclusive
+        position: ``seq_lens`` there is ``img_tokens + text_len + i`` for
+        the ``i``-th step, so that they read the image's anchored pages
+        and each token's K/V lands past them."""
         c = self.cfg
-        x = self.embed(params, tokens)                          # [B, S, D]
+        x = self.embed(params, tokens, img_embeds)              # [B, S, D]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         widx = attn.prefill_write_index(tables, token_shard, token_slot,
@@ -347,7 +381,7 @@ class TransformerLM:
                                      @ lp["wo"], ssm_out)
             x = self._mlp_residual(lp, x)
         # sample the first output token from the last valid position
-        idx = (seq_lens.long() - 1).clamp(min=0)
+        idx = (seq_lens.long() - 1).clamp(min=0) + (s - tokens.shape[1])
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
         return self.logits(params, last).argmax(dim=-1).to(torch.int32)
@@ -365,9 +399,11 @@ class TransformerLM:
         Attention takes the route of :meth:`prefill`, but, as in the JAX
         model, global on every layer and with no SSM branch under
         ``hybrid``: the baselines serve another model than
-        ``LibraEngine`` there (a fault of the reference, carried)."""
+        ``LibraEngine`` there (a fault of the reference, carried). Under
+        ``vlm`` it takes no image, as in the JAX model, and so serves the
+        text-only model (carried too)."""
         c = self.cfg
-        x = self.embed(params, tokens)                          # [B, S, D]
+        x = params["embed"][tokens.long()]                      # [B, S, D]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         kv = x.new_zeros((c.num_layers, b, max_len, 2, c.num_kv_heads,
@@ -406,7 +442,7 @@ class TransformerLM:
         c = self.cfg
         if not donate:
             cache = cache.clone()
-        x = self.embed(params, tokens)                          # [B, D]
+        x = params["embed"][tokens.long()]                      # [B, D]
         b, smax = x.shape[0], cache.shape[2]
         rows = torch.arange(b, device=x.device)
         # dynamic_update_slice clamps the start so that the update fits

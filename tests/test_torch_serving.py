@@ -80,15 +80,43 @@ def test_configs_and_param_counts_match_jax(arch):
 
 
 @pytest.mark.parametrize("family", ["vlm", "encdec"])
-def test_unported_families_raise(family):
+def test_every_family_builds_and_every_config_matches_jax(family):
+    """``build_model`` gives a ``TransformerLM`` under ``vlm`` and an
+    ``EncDecModel`` under ``encdec``; ``get_config`` / ``get_reduced`` of
+    every arch of the JAX package's registry, in its order, equal the
+    reference's."""
+    from repro_torch.models.encdec import EncDecModel
+    from repro_torch.models.transformer import TransformerLM
+
     cfg = ModelConfig(name=f"x-{family}", family=family, num_layers=1,
                       d_model=8, num_heads=2, num_kv_heads=2, d_ff=8,
-                      vocab_size=16)
-    item = {"vlm": 2, "encdec": 3}[family]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*item {item}"):
-        t_build(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        tconfigs.get_config("whisper-medium")
+                      vocab_size=16, img_tokens=2, enc_layers=1,
+                      enc_frames=4)
+    want = {"vlm": TransformerLM, "encdec": EncDecModel}[family]
+    assert type(t_build(cfg)) is want
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    for arch in jconfigs.ARCHS:
+        for get in ("get_config", "get_reduced"):
+            assert dataclasses.asdict(getattr(tconfigs, get)(arch)) == \
+                dataclasses.asdict(getattr(jconfigs, get)(arch))
+    assert {a for a, c in tconfigs.all_configs().items()
+            if c.family == family} == \
+        {a for a, c in jconfigs.all_configs().items() if c.family == family}
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCHS + ["libra-proxy-125m"])
+def test_param_counts_and_active_param_counts_match_jax(arch):
+    """``count_params_from_config`` with and without ``active_only`` and
+    ``ModelConfig.active_param_count`` equal the reference's for every
+    arch (a moe config counts only its top-k routed experts)."""
+    from repro.models.registry import count_params_from_config as j_count
+    from repro_torch.models.registry import count_params_from_config as t_count
+
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    for active in (False, True):
+        assert t_count(t, active_only=active) == j_count(j, active_only=active)
+    assert t.active_param_count() == j.active_param_count()
+    assert (t.active_param_count() < t.param_count()) == (t.family == "moe")
 
 
 def test_init_params_is_seeded_and_follows_the_template():
