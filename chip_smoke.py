@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
-the 19 phases below, in order but where a phase says when it runs:
+the 20 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -221,8 +221,8 @@ the 19 phases below, in order but where a phase says when it runs:
    which the plain run's router had a top-k boundary margin (k-th against
    (k+1)-th probability) below 1e-6 in some layer, excused by it (each
    case printed with its margin), and the entries dropped past an
-   expert's capacity equal in both runs (``index_add_``'s atomic combine
-   on the card may reorder a row's sum). Prints per run tokens/s, p99,
+   expert's capacity equal in both runs (the combine adds a token's
+   ``k`` terms in another order than the reference). Prints per run tokens/s, p99,
    time to first token, ms per decode step, peak device memory, seconds,
    dropped entries by step, the plain run's router margins by step, and a
    profiler split of one full-batch decode step: the MoE block's router,
@@ -272,6 +272,36 @@ the 19 phases below, in order but where a phase says when it runs:
    encoder's seconds apart from the decoder's prefill, ms a step,
    tokens/s, peak memory, and the cross-attention's share of a step's
    device time.
+20. **train** (last, after phase 9) -- training, which reaches none of
+   the seven kernels (the reference trains through jnp functions): none
+   may launch during the phase, and ``flash_attention`` must refuse an
+   input that requires gradients. (a) ``Trainer`` on libra-proxy-125m at
+   full size (162 M parameters), ``SyntheticCorpus(seed=0)``, 8 x 512,
+   ``AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=200)``,
+   ``remat="none"``, 30 steps with a checkpoint at step 10: the mean loss
+   of the last 5 steps below the first 5's less 0.5; a fresh ``Trainer``
+   resumes the checkpoint and its 5 losses are within 1e-5 of the
+   continued run's; a simulated preemption then writes its checkpoint at
+   step 15. (b) phi4-mini-3.8b at full width, 16 of its 32 layers (2.23 B
+   parameters, 35.6 GB of parameters, gradients and moments), 2 x 2048,
+   ``remat="full"``, 3 steps: every layer through ``blockwise_attention``
+   and its backward, losses finite and gradient norms positive. For both,
+   ms a step, tokens/s, peak memory, and a profiled step's device time
+   split into the forward, the remat rerun, the blockwise backward, the
+   other backward products, the head and AdamW, with the host gaps and
+   the device's busy share. (c) ``blockwise_attention``'s output and
+   backward against autograd through ``dense_attention`` at phi4-mini's
+   head shapes (2 x 2048, 24/8 heads of 128; causal, window 1024, and
+   1500 queries over 1536 keys non-causal), float32 within ``atol = rtol
+   = 1e-5`` and bfloat16 within 1e-2 by relative norm; every reduced
+   config's ``loss_fn`` and gradients on the card against the CPU from the
+   same parameters, within bars set from the card's own readings (the
+   loss within 1e-3, each gradient within 3e-2 and all together within
+   2e-2 by relative norm), and a control run on the card from parameters
+   rounded to float8 (e4m3) must break them; and at the reduced config of
+   every arch the ``Trainer`` feeds (tokens alone: not vlm, encdec), 2 x
+   128 positions, the exact-resume twin of (a) within 1e-5 (MoE
+   included; the xLSTM's mLSTM blocks run two chunks).
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -318,6 +348,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -453,11 +484,16 @@ class ServeSize:
 
     def config(self):
         """The arch's published config, its depth cut to ``layers``."""
-        from repro_torch.configs import get_config
+        return cut_config(self.arch, self.layers)
 
-        cfg = get_config(self.arch)
-        return (dataclasses.replace(cfg, num_layers=self.layers)
-                if self.layers else cfg)
+
+def cut_config(arch: str, layers: int):
+    """``arch``'s published config, its depth cut to ``layers`` (0 keeps
+    it)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
 #: phase 15: the moe family. qwen2-moe-a2.7b at full width and depth;
@@ -2365,14 +2401,17 @@ SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "router_topk"),
                 "paged_decode_attention"))
 
 
-def labelled_split(targets, body, device, torch, warmup=None) -> dict:
+def labelled_split(targets, body, device, torch, warmup=None,
+                   labels=None) -> dict:
     """Device time of one ``body()`` (which returns its wall seconds) by
     part: each ``(obj, attr, label)`` of ``targets`` (innermost first: a
     device event goes to the first label whose host range holds its
     launch) is wrapped in a profiler label for the window, and the time
-    left is ``other``. Device time from the window's trace
-    (``kernel_audit.profile_window``, opened after ``warmup()``; each event
-    under the label whose host range holds its launch)."""
+    left is ``other``. ``labels``, where given, are the labels in that
+    order, those ``body`` opens itself included. Device time from the
+    window's trace (``kernel_audit.profile_window``, opened after
+    ``warmup()``; each event under the label whose host range holds its
+    launch)."""
     from torch.profiler import record_function
 
     from repro_torch.analysis import kernel_audit as ka
@@ -2392,7 +2431,7 @@ def labelled_split(targets, body, device, torch, warmup=None) -> dict:
     finally:
         for (obj, fn, _label), inner in zip(targets, saved):
             setattr(obj, fn, inner)
-    labels = list(dict.fromkeys(label for _o, _f, label in targets))
+    labels = list(labels or dict.fromkeys(label for _o, _f, label in targets))
     events = ka.trace_events(prof)
     by_label = ka.device_events_by_label(events,
                                          labels + [ka.WINDOW_MARKER_LABEL])
@@ -4045,6 +4084,530 @@ def policy_ab(paths, dev, torch, np, ops, tt, _build) -> int:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 20: training
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainSize:
+    """A training run of phase 20 (see PERF.md, Cells)."""
+    arch: str
+    #: layers trained; 0 keeps the config's depth
+    layers: int = 0
+    batch: int = 8
+    seq: int = 512
+    remat: str = "none"
+    steps: int = 30
+    seed: int = 0
+
+    def config(self):
+        """The arch's published config, its depth cut to ``layers``."""
+        return cut_config(self.arch, self.layers)
+
+
+#: (a) the model the JAX package's trainer, launcher and examples train,
+#: at full size (12 layers, d_model 768, 162 M parameters)
+TRAIN_PROXY = TrainSize(arch="libra-proxy-125m")
+#: (b) phi4-mini at full width, 16 of its 32 layers: 2 x 2048 positions,
+#: so every layer attends through blockwise_attention and its backward
+TRAIN_PHI4 = TrainSize(arch="phi4-mini-3.8b", layers=16, batch=2, seq=2048,
+                       remat="full", steps=3)
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=200)
+#: the fault-tolerance twin of (a): save at this step, train on this many
+TRAIN_SAVE_AT = 10
+TRAIN_RESUME_STEPS = 5
+#: a resumed run against the continued run (tests/test_training_ft.py)
+RESUME_TOL = 1e-5
+#: the mean loss of the last 5 steps below the first 5's by more than this
+LOSS_DROP = 0.5
+#: (c) blockwise_attention's backward against autograd through
+#: dense_attention: the bars of tests/test_torch_blockwise.py (TOL,
+#: BF16_VS_DENSE_REL), at phi4-mini's head shapes
+BLOCKWISE_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BLOCKWISE_BF16_REL = 1e-2
+#: (b, hq, hkv, hd) of phi4-mini's attention at (b)'s batch
+BLOCKWISE_HEADS = (2, 24, 8, 128)
+#: name -> (sq, skv, causal, window)
+BLOCKWISE_CASES = {"causal": (2048, 2048, True, 0),
+                   "window-1024": (2048, 2048, True, 1024),
+                   "noncausal-1500x1536": (1500, 1536, False, 0)}
+#: (c) loss_fn and its gradients on the card against the CPU, both in
+#: bfloat16, from the card's own readings (NVIDIA H100 80GB HBM3, 700 W:
+#: the loss up to 2.1e-4 apart, a leaf's gradient up to 9.0e-3 by
+#: relative norm, all leaves together up to 6.9e-3), about three times
+#: the worst of them
+CARD_LOSS_TOL = 1e-3
+CARD_GRAD_TOL = 3e-2
+CARD_GRAD_GLOBAL_TOL = 2e-2
+#: (c) the control: the same card run from parameters rounded to this
+#: dtype must break the bars above (on the CPU it lies 0.10-0.90 from the
+#: exact gradients per leaf)
+CARD_CONTROL_DTYPE = "float8_e4m3fn"
+#: (c) the exact-resume twin at reduced configs: batch x positions (two
+#: mLSTM chunks of 64)
+RESUME_REDUCED_SHAPE = (2, 128)
+#: the labels of a training step's split, in attribution order: a device
+#: event goes to the first label whose host range holds its launch, so a
+#: layer's kernels in the first forward count as "forward" and only its
+#: rerun in the backward (remat) as "recompute"
+TRAIN_SPLIT = ("blockwise.backward", "forward", "recompute", "head",
+               "adamw", "backward")
+
+
+def train_batch(ts: TrainSize, cfg, dev, torch):
+    """The next batch of a fresh ``SyntheticCorpus(seed=0)`` pipeline at
+    ``ts``'s shape, on the card."""
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=0),
+                        batch=ts.batch, seq_len=ts.seq)
+    b = pipe.next_batch()
+    return {k: torch.tensor(b[k], device=dev) for k in ("tokens", "labels")}
+
+
+def train_split(trainer, batch, torch) -> dict:
+    """Device time of one training step by part (:func:`labelled_split`),
+    as ``Trainer`` computes it but with the head's backward run first, on
+    its own (to a detached copy of the final hidden state), then the
+    body's: the same products, so that each part has a host range.
+    ``forward`` is the body's forward; ``recompute`` its rerun under
+    ``remat``; ``blockwise.backward`` the custom backward of
+    ``blockwise_attention``; ``backward`` the other products and
+    elementwise work of the body's backward; ``head`` the head's product,
+    the loss and their backward; ``adamw`` the update (global norm,
+    moments, parameters)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.training.optimizer import adamw_update
+
+    model = trainer.model
+    check(model.cfg.family == "dense", "the split runs the dense family")
+
+    def step():
+        t0 = time.perf_counter()
+        params = trainer.params
+        with record_function("forward"):
+            hidden, aux = model.forward(params, batch["tokens"],
+                                        remat=trainer.remat)
+        with record_function("head"):
+            h = hidden.detach().requires_grad_()
+            total, _ = model.head_loss(params, h, batch["labels"], aux)
+            total.backward()
+        with record_function("backward"):
+            torch.autograd.backward(hidden, h.grad)
+        with record_function("adamw"), torch.no_grad():
+            trainer.params, trainer.opt_state, _ = adamw_update(
+                trainer.opt_cfg, params, tree_map(lambda p: p.grad, params),
+                trainer.opt_state)
+        for p in tree_leaves(params):
+            p.grad = None
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the window opens after a step of its own (see labelled_split)
+    out = labelled_split([(attn._Blockwise, "backward", "blockwise.backward"),
+                          (model, "_train_layer", "recompute")], step,
+                         batch["tokens"].device, torch, warmup=step,
+                         labels=TRAIN_SPLIT)
+    out["share_of_device"] = {k: v / out["device_ms"]
+                              for k, v in out["device_ms_by_part"].items()}
+    return out
+
+
+def train_stats(ts: TrainSize, hist, torch) -> dict:
+    """Step times of a run's history (the first step, which allocates, set
+    apart), tokens a second at the median, peak device memory."""
+    steps = [h["time"] for h in hist]
+    med = statistics.median(steps[1:] if len(steps) > 1 else steps)
+    return {"steps": len(steps), "first_step_ms": steps[0] * 1e3,
+            "step_ms": [t * 1e3 for t in steps],
+            "median_step_ms": med * 1e3,
+            "tokens_per_s": ts.batch * ts.seq / med,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist]}
+
+
+def new_trainer(ts: TrainSize, cfg, dev, ckpt_dir=None):
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+
+    pipe = DataPipeline(SyntheticCorpus(cfg.vocab_size, seed=0),
+                        batch=ts.batch, seq_len=ts.seq)
+    return Trainer(build_model(cfg), AdamWConfig(**TRAIN_OPT), pipe,
+                   checkpoint_dir=ckpt_dir, checkpoint_every=10 ** 6,
+                   remat=ts.remat, seed=ts.seed, device=dev)
+
+
+def resume_twin(ts: TrainSize, cfg, dev, ck: str, hist: list):
+    """A fresh ``Trainer`` resumes the checkpoint at ``TRAIN_SAVE_AT`` in
+    ``ck`` and trains ``TRAIN_RESUME_STEPS`` steps; each loss must be
+    within ``RESUME_TOL`` of the continued run's (``hist``, its history).
+    Returns the resumed trainer and the readings."""
+    t2 = new_trainer(ts, cfg, dev, ck)
+    check(t2.resume() and t2.step == TRAIN_SAVE_AT,
+          f"{ts.arch}: no checkpoint at step {TRAIN_SAVE_AT} to resume")
+    resumed = [h["loss"] for h in t2.train(TRAIN_RESUME_STEPS)]
+    continued = [h["loss"] for h in
+                 hist[TRAIN_SAVE_AT:TRAIN_SAVE_AT + TRAIN_RESUME_STEPS]]
+    err = max(abs(a - b) for a, b in zip(resumed, continued))
+    check(err < RESUME_TOL,
+          f"{ts.arch}: the resumed run's losses {resumed} differ from "
+          f"the continued run's {continued} by {err}")
+    return t2, {"save_at": TRAIN_SAVE_AT, "resumed": resumed,
+                "continued": continued, "max_abs_err": err,
+                "tol": RESUME_TOL}
+
+
+def resume_reduced(dev) -> list:
+    """(c): the exact-resume twin of (a) at the reduced config of every
+    arch whose ``loss_fn`` takes tokens alone, at
+    ``RESUME_REDUCED_SHAPE``."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS, get_reduced
+
+    b, seq = RESUME_REDUCED_SHAPE
+    out = []
+    for arch in ARCHS:
+        cfg = get_reduced(arch)
+        if cfg.family in ("vlm", "encdec"):
+            continue
+        ts = TrainSize(arch=arch, batch=b, seq=seq)
+        with tempfile.TemporaryDirectory() as ck:
+            t = new_trainer(ts, cfg, dev, ck)
+            t.train(TRAIN_SAVE_AT)
+            t.save(blocking=True)
+            t.train(TRAIN_RESUME_STEPS)
+            _t2, resume = resume_twin(ts, cfg, dev, ck, t.history)
+        out.append({"arch": arch, "family": cfg.family, "batch": [b, seq],
+                    **resume})
+    return out
+
+
+def train_proxy(ts: TrainSize, dev, torch) -> dict:
+    """(a): ``ts.steps`` steps of ``Trainer`` on ``SyntheticCorpus(seed=0)``
+    with a checkpoint at ``TRAIN_SAVE_AT``; the loss must fall by more
+    than ``LOSS_DROP``. Then a fresh ``Trainer`` resumes that checkpoint
+    and trains ``TRAIN_RESUME_STEPS`` steps, each loss within
+    ``RESUME_TOL`` of the continued run's; then a simulated preemption
+    writes its final checkpoint at the step it stopped. Last, a profiled
+    step."""
+    import tempfile
+
+    cfg = ts.config()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ck:
+        t = new_trainer(ts, cfg, dev, ck)
+        t.train(TRAIN_SAVE_AT)
+        t.save(blocking=True)
+        t.train(ts.steps - TRAIN_SAVE_AT)
+        hist = t.history
+        stats = train_stats(ts, hist, torch)
+        first = statistics.mean(h["loss"] for h in hist[:5])
+        last = statistics.mean(h["loss"] for h in hist[-5:])
+        check(last < first - LOSS_DROP,
+              f"{ts.arch}: the loss fell from {first} to {last}, not by "
+              f"more than {LOSS_DROP}")
+        t2, resume = resume_twin(ts, cfg, dev, ck, hist)
+        t2._preempted = True                 # a simulated SIGTERM
+        t2.train(3)
+        stop = TRAIN_SAVE_AT + TRAIN_RESUME_STEPS
+        check(t2.step == stop and t2.ckpt.latest_step() == stop,
+              f"{ts.arch}: the preempted run stopped at {t2.step} with its "
+              f"last checkpoint at {t2.ckpt.latest_step()}, not {stop}")
+        del t2
+        split = train_split(t, train_batch(ts, cfg, dev, torch), torch)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": ts.arch, "params": cfg.param_count(),
+            "batch": [ts.batch, ts.seq], "remat": ts.remat, **stats,
+            "first5_mean_loss": first, "last5_mean_loss": last,
+            "resume": resume,
+            "preempted_at": stop, "split": split}
+
+
+def train_big(ts: TrainSize, dev, torch) -> dict:
+    """(b): ``ts.steps`` steps of ``Trainer`` on phi4-mini at full width,
+    ``remat="full"``, every layer through ``blockwise_attention``: finite
+    losses, a positive gradient norm; then a profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+
+    cfg = ts.config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = new_trainer(ts, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = []
+    orig = attn.blockwise_attention
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[1])
+        return orig(*args, **kw)
+    attn.blockwise_attention = counted
+    try:
+        hist = t.train(ts.steps)
+    finally:
+        attn.blockwise_attention = orig
+    stats = train_stats(ts, hist, torch)
+    check(all(math.isfinite(x) for x in stats["losses"]) and
+          all(g > 0 and math.isfinite(g) for g in stats["grad_norms"]),
+          f"{ts.arch}: losses {stats['losses']}, gradient norms "
+          f"{stats['grad_norms']}")
+    # a layer's forward calls it once, its rerun under remat once more
+    check(len(calls) == 2 * ts.steps * cfg.num_layers,
+          f"{ts.arch}: blockwise_attention ran {len(calls)} times, not "
+          f"{2 * ts.steps * cfg.num_layers}")
+    batch = train_batch(ts, cfg, dev, torch)
+    labelled = int((batch["labels"] >= 0).sum())
+    split = train_split(t, batch, torch)
+    check(split["device_ms_by_part"]["blockwise.backward"] > 0 and
+          split["device_ms_by_part"]["recompute"] > 0 and
+          split["device_ms_by_part"]["adamw"] > 0,
+          f"{ts.arch}: the split shows no blockwise backward, recompute or "
+          f"AdamW: {split}")
+    n = cfg.param_count()
+    tokens = ts.batch * ts.seq
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": ts.arch, "params": n, "param_gb": n * 4 / 1e9,
+            "state_gb": n * 16 / 1e9, "param_init_s": init_s,
+            "layers": cfg.num_layers,
+            "reduced": {"num_layers": [ts.layers,
+                                       get_config(ts.arch).num_layers]},
+            "batch": [ts.batch, ts.seq], "labelled_tokens": labelled,
+            "remat": ts.remat, **stats,
+            "flops_6nd": 6 * n * tokens, "flops_8nd_remat": 8 * n * tokens,
+            "tflops_8nd_per_s": 8 * n * tokens
+            / (stats["median_step_ms"] / 1e3) / 1e12,
+            "blockwise_calls": len(calls), "split": split}
+
+
+def blockwise_card(dev, torch) -> list:
+    """(c): ``blockwise_attention``'s output and custom backward against
+    autograd through ``dense_attention`` at phi4-mini's head shapes, in
+    float32 and bfloat16."""
+    from repro_torch.models import attention as attn
+
+    b, hq, hkv, hd = BLOCKWISE_HEADS
+    out = []
+    for name, (sq, skv, causal, window) in BLOCKWISE_CASES.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20)
+        q = torch.randn(b, sq, hq, hd, generator=gen, device=dev)
+        k, v = (torch.randn(b, skv, hkv, hd, generator=gen, device=dev)
+                for _ in range(2))
+        do = torch.randn(b, sq, hq, hd, generator=gen, device=dev)
+        pq = torch.arange(sq, device=dev).expand(b, sq)
+        pk = torch.arange(skv, device=dev).expand(b, skv)
+        check(attn.blockwise_kv_pad(sq, skv) == 0 or causal,
+              f"{name}: would attend to padded zero keys")
+        for dtype in (torch.float32, torch.bfloat16):
+            res = {}
+            for fn_name, fn in (("blockwise", attn.blockwise_attention),
+                                ("dense", attn.dense_attention)):
+                xs = [x.detach().to(dtype).requires_grad_()
+                      for x in (q, k, v)]
+                o = fn(*xs, pq, pk, causal=causal, window=window)
+                o.backward(do.to(dtype))
+                res[fn_name] = [o.detach()] + [x.grad for x in xs]
+                del xs, o
+            row = {"case": name, "dtype": str(dtype).split(".")[-1],
+                   "shape": [b, sq, skv, hq, hkv, hd], "window": window}
+            for label, got, want in zip(("out", "dq", "dk", "dv"),
+                                        res["blockwise"], res["dense"]):
+                got, want = got.float(), want.float()
+                rel = float((got - want).norm() / want.norm())
+                row[label] = {"max_abs_err": float((got - want).abs().max()),
+                              "rel_norm": rel}
+                if dtype == torch.float32:
+                    ok = torch.allclose(got, want, **BLOCKWISE_F32_TOL)
+                else:
+                    ok = rel < BLOCKWISE_BF16_REL
+                check(ok, f"blockwise {name} {dtype} {label}: {row[label]}")
+            out.append(row)
+            del res
+        torch.cuda.empty_cache()
+    return out
+
+
+class RouterReplay:
+    """The card's expert choices, replayed on the CPU. A bfloat16 router
+    logit may tie or near-tie at the top-k boundary (reduced qwen2-moe
+    ties exactly in its second layer), and the two devices may then pick
+    other experts: a discrete difference, not a numerical one. Inside
+    ``record()`` every ``moe.router_topk`` call keeps its ids; inside
+    ``replay()`` each call takes the recorded ids in order, with the
+    gates the router's softmax gives them (normalised as
+    ``router_topk`` does), and counts the rows whose own choice
+    differed."""
+
+    def __init__(self):
+        self.ids, self.flipped_rows, self.calls = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe
+
+        orig = moe.router_topk
+        moe.router_topk = lambda logits, cfg: fn(orig, logits, cfg)
+        try:
+            yield self
+        finally:
+            moe.router_topk = orig
+
+    def record(self):
+        def rec(orig, logits, cfg):
+            gates, ids = orig(logits, cfg)
+            self.ids.append(ids.detach().cpu())
+            return gates, ids
+        return self._patched(rec)
+
+    def replay(self):
+        def rep(orig, logits, cfg):
+            import torch
+
+            ids = self.ids[self.calls].to(logits.device)
+            self.calls += 1
+            _own_gates, own = orig(logits, cfg)
+            self.flipped_rows += int((own.sort(-1).values
+                                      != ids.sort(-1).values).any(-1).sum())
+            pad = torch.arange(cfg.padded_experts,
+                               device=logits.device) >= cfg.num_experts
+            probs = torch.softmax(logits.masked_fill(pad, -1e30).float(), -1)
+            gates = probs.gather(-1, ids)
+            return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), ids
+        return self._patched(rep)
+
+
+def grad_distance(got, want) -> dict:
+    """Losses and gradients ``(loss, [leaf gradients])`` of two runs: the
+    loss apart, the largest relative norm of a leaf's difference and that
+    of all leaves together."""
+    import torch
+
+    (l_got, g_got), (l_want, g_want) = got, want
+    rels = [float((a - b).norm() / b.norm().clamp(min=1e-30))
+            for a, b in zip(g_got, g_want)]
+    glob = float(torch.cat([(a - b).ravel() for a, b in
+                            zip(g_got, g_want)]).norm()
+                 / torch.cat([b.ravel() for b in g_want]).norm())
+    return {"loss_abs_err": abs(l_got - l_want), "grad_rel_max": max(rels),
+            "grad_rel_global": glob}
+
+
+def within_card_bars(d: dict) -> bool:
+    return (d["loss_abs_err"] < CARD_LOSS_TOL
+            and d["grad_rel_max"] < CARD_GRAD_TOL
+            and d["grad_rel_global"] < CARD_GRAD_GLOBAL_TOL)
+
+
+def grads_card(dev, torch, np) -> list:
+    """(c): ``loss_fn`` (bfloat16, ``remat="none"``) and its gradients on
+    the card against the same on the CPU, from the same parameters and
+    batch, for the reduced config of every arch and of libra-proxy. Under
+    ``moe`` the CPU run takes the card's expert choices
+    (:class:`RouterReplay`), and the rows whose choice that changed are
+    counted. A control run on the card from the parameters rounded to
+    ``CARD_CONTROL_DTYPE`` (with its own expert choices) must break the
+    bars."""
+    from repro_torch.configs import ARCHS, get_reduced
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+
+    control_dtype = getattr(torch, CARD_CONTROL_DTYPE)
+    out = []
+    for arch in ARCHS + ["libra-proxy-125m"]:
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
+                                 dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            batch["img_embeds"] = torch.tensor(rng.standard_normal(
+                (2, cfg.img_tokens, cfg.d_model))).to(torch.bfloat16)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.tensor(rng.standard_normal(
+                (2, cfg.enc_frames, cfg.d_model))).to(torch.bfloat16)
+        host = model.init_params(0, device="cpu")
+        rounded = tree_map(lambda p: p.to(control_dtype).float(), host)
+        runs = {}
+        router = RouterReplay()
+        for label, where, src, ctx in (
+                ("card", dev, host, router.record()),
+                ("cpu", "cpu", host, router.replay()),
+                ("control", dev, rounded, contextlib.nullcontext())):
+            params = tree_map(lambda p: p.detach().to(where)
+                              .requires_grad_(), src)
+            with ctx:
+                total, _ = model.loss_fn(
+                    params, {k: v.to(where) for k, v in batch.items()},
+                    remat="none")
+            total.backward()
+            runs[label] = (float(total.detach()), [
+                p.grad.float().cpu() if p.grad is not None
+                else torch.zeros_like(p, device="cpu")
+                for p in tree_leaves(params)])
+        row = {"arch": arch, "loss_cpu": runs["cpu"][0],
+               "loss_card": runs["card"][0],
+               **grad_distance(runs["card"], runs["cpu"]),
+               "router_calls": router.calls,
+               "rows_routed_otherwise_on_cpu": router.flipped_rows,
+               "control": {"dtype": CARD_CONTROL_DTYPE,
+                           **grad_distance(runs["control"], runs["cpu"])}}
+        check(within_card_bars(row) and
+              all(torch.isfinite(g).all() for g in runs["card"][1]),
+              f"{arch}: loss_fn on the card differs from the CPU: {row}")
+        check(not within_card_bars(row["control"]),
+              f"{arch}: the {CARD_CONTROL_DTYPE} control passes the bars: "
+              f"{row['control']}")
+        out.append(row)
+    return out
+
+
+def train_phase(dev, torch, np) -> dict:
+    """Phase 20: training on the card. (a) ``TRAIN_PROXY``, (b)
+    ``TRAIN_PHI4``, (c) the blockwise backward and every reduced config's
+    gradients. No kernel of the port is on this path (the reference
+    trains through jnp functions): none may launch, and each forward-only
+    kernel must refuse an input that requires gradients."""
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import mlstm_scan as kmlstm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_copy as kern
+
+    counts = (kern.LAUNCHES, kattn.LAUNCHES, kmlstm.LAUNCHES)
+    before = [dict(c) for c in counts]
+    q = torch.ones((1, 2, 16, 16), device=dev, requires_grad=True)
+    try:
+        ops.flash_attention(q, q, q, impl="cuda")
+    except RuntimeError as exc:
+        refused = "forward only" in str(exc)
+    else:
+        refused = False
+    check(refused, "flash_attention took an input that requires grad")
+    entry = {"card": card_line(torch)}
+    entry["proxy"] = train_proxy(TRAIN_PROXY, dev, torch)
+    entry["phi4"] = train_big(TRAIN_PHI4, dev, torch)
+    entry["blockwise"] = blockwise_card(dev, torch)
+    entry["grads"] = grads_card(dev, torch, np)
+    entry["resume_reduced"] = resume_reduced(dev)
+    launched = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c
+                if c[k] != b[k]}
+    check(not launched, f"the training path launched kernels: {launched}")
+    emit({"phase": "train", **entry})
+    return entry
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SmokeError("src/repro_torch not found next to chip_smoke.py: "
@@ -4145,6 +4708,9 @@ def main() -> int:
                  torch, ops)
     xsrv = timed("xlstm_serve", xlstm_serve, xs, dev, torch, np, kmlstm)
     tim = timed("timing", timing, size, ss, xs, dev, torch, np, ops, tt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("train", train_phase, dev, torch, np)
     emit({"phase_seconds": phase_s})
 
     print(card_line(torch), flush=True)

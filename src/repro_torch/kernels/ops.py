@@ -17,6 +17,13 @@ mean the same in both:
 ``ValueError``. A CUDA tensor never reaches the plain version through
 ``'auto'``, and a failed kernel launch raises: there is no fallback.
 
+The attention and mLSTM kernels are forward only, as the Pallas kernels
+are: on the ``'cuda'`` route they raise ``RuntimeError`` when gradients
+are enabled and an input requires them, before any other check, so that
+a gradient never vanishes in silence. Training differentiates the
+models' plain functions (``models.attention.dense_or_blockwise``,
+``models.ssm.mlstm_cell_chunked``) instead.
+
 The pool is updated in place by both impls (the kernels write it, the
 plain version uses ``index_put_``), so ``donate_pool`` is accepted for
 signature parity with the JAX package and changes nothing.
@@ -56,11 +63,21 @@ def resolve(impl: str, t: torch.Tensor) -> str:
     return impl
 
 
+def forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` if gradients are enabled and one of
+    ``tensors`` requires them: kernel ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward only and an "
+                           "input requires grad; differentiate the model's "
+                           "plain function, or call it under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal=True, window=0,
                     impl="auto") -> torch.Tensor:
     """Prefill attention ``[B, Hq, Sq, hd]`` of ``q [B, Hq, Sq, hd]`` over
     ``k``/``v [B, Hkv, Skv, hd]`` (GQA, causal, sliding window)."""
     if resolve(impl, q) == "cuda":
+        forward_only("flash_attention", q, k, v)
         return _attn.flash_attention(q, k, v, causal=causal, window=window)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -72,6 +89,7 @@ def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,
     ``tables [B, pps]`` names in one layer's pool ``[P, page, 2, Hkv,
     hd]``."""
     if resolve(impl, q) == "cuda":
+        forward_only("paged_attention", q, pool)
         return _attn.paged_attention(q, pool, tables, page_pos, seq_lens,
                                      window=window)
     return _ref.paged_attention_ref(q, pool, tables, page_pos, seq_lens,
@@ -87,6 +105,7 @@ def mlstm_scan(q, k, v, log_i, log_f, *, chunk=64, impl="auto",
     the plain chunked version; the JAX package's ``'ref'`` is the
     sequential oracle, which is :func:`ref.mlstm_scan_ref` here."""
     if resolve(impl, q) == "cuda":
+        forward_only("mlstm_scan", q, k, v, log_i, log_f)
         out, state = _mlstm.mlstm_scan(q, k, v, log_i, log_f, chunk=chunk)
     else:
         out, state = _ref.mlstm_chunked_ref(q, k, v, log_i, log_f,

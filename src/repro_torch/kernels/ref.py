@@ -28,7 +28,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 I32 = torch.int32
 NEG_INF = -1e30
@@ -265,57 +264,18 @@ def mlstm_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                      torch.Tensor,
                                                      torch.Tensor]]:
-    """Stabilised chunkwise-parallel mLSTM from the zero state, the twin of
-    the JAX package's ``models.ssm.mlstm_cell_chunked`` in the kernel's
-    layout: ``q``/``k``/``v [B, H, S, dh]``, ``log_i``/``log_f [B, H, S]``
+    """Stabilised chunkwise-parallel mLSTM from the zero state,
+    :func:`repro_torch.models.ssm.mlstm_cell_chunked` (the twin of the JAX
+    package's ``models.ssm.mlstm_cell_chunked``) in the kernel's layout:
+    ``q``/``k``/``v [B, H, S, dh]``, ``log_i``/``log_f [B, H, S]``
     (``log_f`` log-sigmoided). Returns ``(h [B, H, S, dh], (C [B, H, dh,
     dh], n [B, H, dh], m [B, H]))``, computed in float32 (float64 for
-    float64 inputs). ``S`` is padded to a multiple of ``chunk`` as the JAX
-    function pads it (zeros for q/k/v, ``log_i = NEG_INF``, ``log_f =
-    0``)."""
-    b, h, s, dh = q.shape
-    scale = 1.0 / math.sqrt(dh)
-    nchunks = -(-s // chunk)
-    pad = nchunks * chunk - s
-    dt = torch.promote_types(q.dtype, torch.float32)
-    q, k, v, log_i, log_f = (x.to(dt) for x in (q, k, v, log_i, log_f))
-    if pad:
-        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
-        log_i = F.pad(log_i, (0, pad), value=NEG_INF)
-        log_f = F.pad(log_f, (0, pad))
-    dev = q.device
-    C = torch.zeros((b, h, dh, dh), dtype=dt, device=dev)
-    n = torch.zeros((b, h, dh), dtype=dt, device=dev)
-    m = torch.full((b, h), NEG_INF, dtype=dt, device=dev)
-    tmask = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
-    hs = []
-    for j in range(nchunks):
-        sl = slice(j * chunk, (j + 1) * chunk)
-        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]   # [B, H, c, dh]
-        li, lf = log_i[:, :, sl], log_f[:, :, sl]            # [B, H, c]
-        A = torch.cumsum(lf, dim=-1)                         # inclusive
-        # intra-chunk log weights W[t, s] = A_t - A_s + li_s (s <= t)
-        W = A[..., :, None] - A[..., None, :] + li[..., None, :]
-        W = torch.where(tmask, W, torch.full_like(W, NEG_INF))
-        binter = A + m[..., None]                            # carried state
-        m_loc = torch.maximum(W.amax(dim=-1), binter)
-        P = torch.exp(W - m_loc[..., None]) * (qc @ kc.transpose(-1, -2)
-                                               * scale)
-        e_inter = torch.exp(binter - m_loc)
-        num = P @ vc + e_inter[..., None] * (qc @ C)
-        den = P.sum(dim=-1) + e_inter * (qc @ n[..., None])[..., 0]
-        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_loc))[..., None])
-        # ---- state update to the end of the chunk ----
-        A_T = A[..., -1]
-        w_end = A_T[..., None] - A + li
-        m_new = torch.maximum(A_T + m, w_end.amax(dim=-1))
-        kw = kc * scale * torch.exp(w_end - m_new[..., None])[..., None]
-        decay = torch.exp(A_T + m - m_new)
-        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
-        n = decay[..., None] * n + kw.sum(dim=-2)
-        m = m_new
-    out = (torch.cat(hs, dim=2) if hs else q)[:, :, :s]
-    return out, (C, n, m)
+    float64 inputs)."""
+    from repro_torch.models.ssm import mlstm_cell_chunked
+
+    h, state = mlstm_cell_chunked(
+        *(x.transpose(1, 2) for x in (q, k, v, log_i, log_f)), chunk=chunk)
+    return h.transpose(1, 2), state
 
 
 def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

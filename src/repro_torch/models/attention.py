@@ -1,4 +1,4 @@
-"""Attention paths of the serving slice, on one device.
+"""Attention paths of serving and training, on one device.
 
 PyTorch twins of the JAX package's ``repro.models.attention``, with no mesh
 and no ``shard_map``: one device plays shard ``SHARD`` (0) of the
@@ -8,7 +8,12 @@ one-shard stack that device owns every page; under a stack of more shards
 the pages of the others are neither written nor read, as in JAX.
 
 * ``dense_attention`` — the plain reference path the tests hold the
-  kernels against.
+  kernels against, and training's attention up to 1024 positions.
+* ``blockwise_attention`` — training's attention above 1024 positions:
+  online softmax over tiles of 512 with a backward of its own that
+  recomputes each tile from the saved log-sum-exp (the reference's
+  ``custom_vjp``); ``dense_or_blockwise`` picks between the two as the
+  reference's models do.
 * ``prefill_attention`` — prefill: causal GQA attention at positions
   ``arange(S)``, optionally over a sliding window, through
   ``ops.flash_attention`` (the JAX package computes the same function
@@ -32,7 +37,7 @@ Every placement arrives as int32 metadata from the control plane
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,25 +51,44 @@ SHARD = 0
 WriteIndex = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Reference attention. q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd]."""
-    b, sq, hq, hd = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    qg = (q * (1.0 / math.sqrt(hd))).reshape(b, sq, hkv, g, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)       # [B,Hkv,G,Sq,Skv]
+def _gqa_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """qg [B, Sq, Hkv, G, hd], k [B, Skv, Hkv, hd] -> float32 scores
+    [B, Hkv, G, Sq, Skv]. The operands are widened to float32 first, so
+    that bfloat16 inputs give exact products summed in float32 (the
+    reference's ``preferred_element_type=float32``)."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+
+
+def _mask_bias(pos_q: torch.Tensor, pos_kv: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """pos_q [B, Sq], pos_kv [B, Skv] -> float32 additive bias
+    [B, 1, 1, Sq, Skv]: 0 where a key is kept (by causality and the window
+    only), ``NEG_INF`` elsewhere."""
     dq = pos_q[:, :, None]
     dk = pos_kv[:, None, :]
-    ok = torch.ones((b, sq, pos_kv.shape[1]), dtype=torch.bool,
-                    device=q.device)
+    ok = torch.ones((dq.shape[0], dq.shape[1], dk.shape[2]),
+                    dtype=torch.bool, device=pos_q.device)
     if causal:
         ok = ok & (dq >= dk)
     if window > 0:
         ok = ok & (dq - dk < window)
-    scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None]
+    return torch.where(ok, 0.0, NEG_INF)[:, None, None]
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference attention. q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd]. The scores
+    and the softmax are float32; the probabilities are cast to ``v``'s
+    dtype for the second product, as in the reference. Nothing is written
+    in place, so autograd differentiates it."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = (q * (1.0 / math.sqrt(hd))).reshape(b, sq, hkv, g, hd)
+    scores = _gqa_scores(qg, k)                             # [B,Hkv,G,Sq,Skv]
+    scores = scores + _mask_bias(pos_q, pos_kv, causal, window)
     if kv_valid is not None:
         scores = torch.where(kv_valid[:, None, None, None, :], scores,
                              torch.full_like(scores, NEG_INF))
@@ -110,7 +134,180 @@ def blockwise_kv_pad(sq: int, skv: int) -> int:
     at ``2**30``, so this is for non-causal calls only."""
     if max(sq, skv) <= BLOCKWISE_ABOVE:
         return 0
-    return -skv % min(BLOCKWISE_KV_CHUNK, skv)
+    return _chunk_pad(skv, BLOCKWISE_KV_CHUNK)
+
+
+def _chunk_pad(n: int, chunk: int) -> int:
+    """Rows :func:`blockwise_attention` adds to ``n`` rows to reach a
+    multiple of its chunk, ``min(chunk, n)``."""
+    return -n % min(chunk, n)
+
+
+def _block_pairs(nq: int, nkv: int, causal: bool, window_blocks: int):
+    """The (q chunk, kv block) pairs that can hold unmasked entries, in the
+    reference's order (q chunk major): causal attention visits
+    n(n+1)/2 tiles and windowed attention only its band."""
+    pairs = []
+    for i in range(nq):
+        for j in range(nkv):
+            if causal and j > i:
+                continue
+            if window_blocks > 0 and j < i - window_blocks:
+                continue
+            pairs.append((i, j))
+    return pairs
+
+
+def _pad_rows(x: torch.Tensor, n: int, fill=0) -> torch.Tensor:
+    """``x`` with ``n`` rows of ``fill`` appended along dim 1."""
+    if not n:
+        return x
+    pad = x.new_full((x.shape[0], n) + tuple(x.shape[2:]), fill)
+    return torch.cat([x, pad], dim=1)
+
+
+class _Tiles(NamedTuple):
+    """The tile grid of one blockwise call: chunk sizes, the rows padded
+    onto Q, the (q chunk, kv block) pairs in the reference's order, and
+    the inputs padded to whole chunks (pad queries at position
+    ``-2**30``, pad keys zero at ``2**30``); ``qg`` is the scaled queries
+    in groups, ``[B, Sq_p, Hkv, G, hd]``."""
+    qc: int
+    kc: int
+    pad_q: int
+    pairs: List[Tuple[int, int]]
+    qg: torch.Tensor
+    kp: torch.Tensor
+    vp: torch.Tensor
+    pos_q: torch.Tensor
+    pos_kv: torch.Tensor
+
+    def scores(self, qs: slice, ks: slice, causal: bool, window: int
+               ) -> torch.Tensor:
+        """Float32 masked scores of one tile, ``[B, Hkv, G, cq, ck]``."""
+        return (_gqa_scores(self.qg[:, qs], self.kp[:, ks])
+                + _mask_bias(self.pos_q[:, qs], self.pos_kv[:, ks], causal,
+                             window))
+
+
+def _tiles(q, k, v, pos_q, pos_kv, causal: bool, window: int, q_chunk: int,
+           kv_chunk: int) -> _Tiles:
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
+    pad_q, pad_kv = _chunk_pad(sq, qc), _chunk_pad(skv, kc)
+    qg = (_pad_rows(q, pad_q) * (1.0 / math.sqrt(hd))).reshape(
+        b, sq + pad_q, hkv, hq // hkv, hd)
+    wblocks = -(-window // kc) + 1 if window > 0 else 0
+    pairs = _block_pairs((sq + pad_q) // qc, (skv + pad_kv) // kc, causal,
+                         wblocks)
+    return _Tiles(qc, kc, pad_q, pairs, qg, _pad_rows(k, pad_kv),
+                  _pad_rows(v, pad_kv), _pad_rows(pos_q, pad_q, -(2 ** 30)),
+                  _pad_rows(pos_kv, pad_kv, 2 ** 30))
+
+
+class _Blockwise(torch.autograd.Function):
+    """Online-softmax attention over (q chunk x kv block) tiles, never
+    materialising ``[Sq, Skv]``, with a flash-attention backward: the
+    forward saves only its inputs, its output and the row log-sum-exp
+    ``lse``, and the backward recomputes each tile's scores from
+    ``(q, k, lse)``. The counterpart of the reference's ``custom_vjp``
+    (``_blockwise_fwd_impl`` / ``_blockwise_bwd``), tile for tile and in
+    its order; its ``lax.scan`` over the tile list is a Python loop here.
+    Plain PyTorch: the reference's is jnp, with no kernel behind it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_q, pos_kv, causal: bool, window: int,
+                q_chunk: int, kv_chunk: int):
+        t = _tiles(q, k, v, pos_q, pos_kv, causal, window, q_chunk, kv_chunk)
+        b, sq_p, hkv, g, hd = t.qg.shape
+        nq = sq_p // t.qc
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m = [torch.full((b, hkv, g, t.qc), NEG_INF, **f32) for _ in range(nq)]
+        l = [torch.zeros((b, hkv, g, t.qc), **f32) for _ in range(nq)]
+        acc = [torch.zeros((b, hkv, g, t.qc, hd), **f32) for _ in range(nq)]
+        for i, j in t.pairs:
+            qs = slice(i * t.qc, (i + 1) * t.qc)
+            ks = slice(j * t.kc, (j + 1) * t.kc)
+            vb = t.vp[:, ks]
+            s = t.scores(qs, ks, causal, window)
+            m_new = torch.maximum(m[i], s.amax(dim=-1))
+            alpha = torch.exp(m[i] - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l[i] = l[i] * alpha + p.sum(dim=-1)
+            acc[i] = acc[i] * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb).float()
+            m[i] = m_new
+        m, l, acc = (torch.cat(x, dim=3) for x in (m, l, acc))
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq_p, hkv * g, hd)
+        out = out[:, :q.shape[1]].to(q.dtype)
+        lse = m + torch.log(torch.clamp(l, min=1e-30))      # [B,Hkv,G,Sq_p]
+        ctx.save_for_backward(q, k, v, pos_q, pos_kv, out, lse)
+        ctx.cfg = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pos_q, pos_kv, out, lse = ctx.saved_tensors
+        causal, window, q_chunk, kv_chunk = ctx.cfg
+        t = _tiles(q, k, v, pos_q, pos_kv, causal, window, q_chunk, kv_chunk)
+        b, sq_p, hkv, g, hd = t.qg.shape
+        scale = 1.0 / math.sqrt(hd)
+        dog = _pad_rows(dout, t.pad_q).reshape(t.qg.shape)
+        og = _pad_rows(out, t.pad_q).reshape(t.qg.shape)
+        # D_i = rowsum(dout * out)
+        delta = (dog.float() * og.float()).sum(dim=-1).permute(0, 2, 3, 1)
+        dq = torch.zeros((b, sq_p, hkv * g, hd), dtype=torch.float32,
+                         device=q.device)
+        dk = torch.zeros(t.kp.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for i, j in t.pairs:
+            qs = slice(i * t.qc, (i + 1) * t.qc)
+            ks = slice(j * t.kc, (j + 1) * t.kc)
+            qb, dob = t.qg[:, qs], dog[:, qs].float()
+            kb, vb = t.kp[:, ks].float(), t.vp[:, ks].float()
+            p = torch.exp(t.scores(qs, ks, causal, window)
+                          - lse[..., qs, None])               # [B,H,G,cq,ck]
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+            ds = p * (dp - delta[..., qs, None])
+            dq[:, qs] += (torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+                          * scale).reshape(b, t.qc, hkv * g, hd)
+            dk[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb.float())
+            dv[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+        sq, skv = q.shape[1], k.shape[1]
+        return (dq[:, :sq].to(q.dtype), dk[:, :skv].to(k.dtype),
+                dv[:, :skv].to(v.dtype), None, None, None, None, None, None)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 512
+                        ) -> torch.Tensor:
+    """Memory-efficient attention, q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd] ->
+    [B,Sq,Hq,hd], differentiable through its own backward
+    (:class:`_Blockwise`). Q and K/V are padded to whole chunks, the keys
+    with zero rows at position ``2**30``, as in the reference; a
+    non-causal call keeps those keys (F5, :func:`blockwise_kv_pad`).
+    ``window`` is a Python int (the tile list is fixed per call)."""
+    return _Blockwise.apply(q, k, v, pos_q, pos_kv, causal, int(window),
+                            q_chunk, kv_chunk)
+
+
+def dense_or_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+                       causal: bool, window: int = 0) -> torch.Tensor:
+    """The reference models' training attention: :func:`dense_attention`
+    up to :data:`BLOCKWISE_ABOVE` queries and keys, and
+    :func:`blockwise_attention` above (``transformer.py:165-171``,
+    ``encdec.py:109-112``). Neither reaches a kernel: the CUDA kernels of
+    ``ops`` are forward only."""
+    if max(q.shape[1], k.shape[1]) <= BLOCKWISE_ABOVE:
+        return dense_attention(q, k, v, pos_q, pos_kv, causal=causal,
+                               window=window)
+    return blockwise_attention(q, k, v, pos_q, pos_kv, causal=causal,
+                               window=window)
 
 
 def noncausal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,14 +21,23 @@ added to the embeddings; a decode step computes only the rows at
 ``seq_lens`` (``layers.sinusoidal_rows``), where the JAX package builds a
 table of ``2 ** 20`` rows every step. Parameters are the JAX package's
 nested dict, layers stacked on a leading axis; layers run in a Python
-loop. Computation is float32. ``forward`` / ``decode_stack`` / ``loss_fn``
-are training (``ROADMAP.md``, queue 1, item 4).
+loop. Serving computes in float32.
+
+Training (:meth:`EncDecModel.forward`, :meth:`EncDecModel.loss_fn`) is
+the reference's: every parameter cast to bfloat16, the encoder
+(:meth:`EncDecModel.encode_train`) and the teacher-forced decoder
+(:meth:`EncDecModel.decode_stack`) attending through
+``attention.dense_or_blockwise`` (dense up to 1024 queries and keys,
+blockwise above: at whisper's 1500 frames the encoder and the
+cross-attention take the blockwise branch and attend to its zero keys,
+F5), each layer rematerialised by ``remat``.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
@@ -37,12 +46,15 @@ from repro_torch.models.layers import (
     ParamSpec,
     count_template_params,
     init_params,
+    masked_nll,
     mlp_apply,
     mlp_template,
+    remat_call,
     rms_norm,
     sinusoidal_positions,
     sinusoidal_rows,
     tree_map,
+    unstack,
 )
 from repro_torch.models.transformer import stack_template
 
@@ -143,6 +155,89 @@ class EncDecModel:
         h2 = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         return x + mlp_apply(lp["mlp"], h2, "gelu")
 
+    def _train_mha(self, p, hq: torch.Tensor, hkv: torch.Tensor,
+                   pos_q: torch.Tensor, pos_kv: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+        """Training's attention of ``hq [B, Sq, D]`` over ``hkv [B, Skv,
+        D]``: the reference's ``_mha``, dense or blockwise by
+        ``max(Sq, Skv)``."""
+        c = self.cfg
+        out = attn.dense_or_blockwise(
+            self._heads(hq, p["wq"], c.num_heads),
+            self._heads(hkv, p["wk"], c.num_kv_heads),
+            self._heads(hkv, p["wv"], c.num_kv_heads), pos_q, pos_kv,
+            causal=causal)
+        return out.reshape(*hq.shape[:2], c.q_dim) @ p["wo"]
+
+    # -- training -------------------------------------------------------------
+    def encode_train(self, params, frames: torch.Tensor, *,
+                     remat: str = "full") -> torch.Tensor:
+        """The encoder in its training form (the reference's ``encode``):
+        ``frames [B, F, D]`` in the parameters' dtype -> ``[B, F, D]``,
+        each layer under ``remat``."""
+        c = self.cfg
+        b, f, _ = frames.shape
+        pe = sinusoidal_positions(f, c.d_model, frames.device)
+        x = frames + pe[None].to(frames.dtype)
+        pos = torch.arange(f, device=x.device).expand(b, f)
+        for lp in unstack(params["enc_layers"]):
+            def layer(xx, lp=lp):
+                h = rms_norm(xx, lp["ln1"], c.norm_eps)
+                xx = xx + self._train_mha(lp["attn"], h, h, pos, pos, False)
+                return self._mlp_residual(lp, xx)
+            x = remat_call(layer, x, remat)
+        return rms_norm(x, params["enc_final_norm"], c.norm_eps)
+
+    def decode_stack(self, params, tokens: torch.Tensor,
+                     enc_out: torch.Tensor, *, remat: str = "full"
+                     ) -> torch.Tensor:
+        """The teacher-forced decoder over ``tokens [B, S]`` and the
+        encoder output: causal self-attention, cross-attention over every
+        frame, the GELU MLP, each layer under ``remat``; then the final
+        norm."""
+        c = self.cfg
+        b, s = tokens.shape
+        f = enc_out.shape[1]
+        pe = sinusoidal_positions(s, c.d_model, tokens.device)
+        x = F.embedding(tokens.long(), params["embed"]) \
+            + pe[None].to(params["embed"].dtype)
+        pos = torch.arange(s, device=x.device).expand(b, s)
+        pos_f = torch.arange(f, device=x.device).expand(b, f)
+        for lp in unstack(params["dec_layers"]):
+            def layer(xx, lp=lp):
+                h = rms_norm(xx, lp["ln1"], c.norm_eps)
+                xx = xx + self._train_mha(lp["self_attn"], h, h, pos, pos,
+                                          True)
+                hx = rms_norm(xx, lp["ln_x"], c.norm_eps)
+                xx = xx + self._train_mha(lp["cross_attn"], hx, enc_out, pos,
+                                          pos_f, False)
+                return self._mlp_residual(lp, xx)
+            x = remat_call(layer, x, remat)
+        return rms_norm(x, params["dec_final_norm"], c.norm_eps)
+
+    def forward(self, params, tokens: torch.Tensor, frames: torch.Tensor, *,
+                compute_dtype=torch.bfloat16, remat: str = "full"):
+        """Training forward: ``(decoder hidden [B, S, D], aux)``, ``aux`` a
+        float32 zero. Every parameter and the frames are cast to
+        ``compute_dtype`` first."""
+        p = tree_map(lambda a: a.to(compute_dtype), params)
+        enc_out = self.encode_train(p, frames.to(compute_dtype), remat=remat)
+        x = self.decode_stack(p, tokens, enc_out, remat=remat)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
+                remat: str = "full"):
+        """The masked next-token NLL of ``batch`` (tokens, labels; -1 =
+        masked; frames [B, F, D]), with no z-loss, as the reference's. The
+        head is the tied embedding, a bfloat16 product widened to
+        float32."""
+        hidden, _ = self.forward(params, batch["tokens"], batch["frames"],
+                                 remat=remat)
+        logits = self.logits(params, hidden,
+                             compute_dtype=torch.bfloat16).float()
+        loss, _lse, _mask, ntok = masked_nll(logits, batch["labels"])
+        return loss, {"loss": loss, "ntok": ntok}
+
     # -- encode ---------------------------------------------------------------
     @torch.no_grad()
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -172,16 +267,19 @@ class EncDecModel:
         return (c.num_layers, batch, c.enc_frames, 2, c.num_kv_heads,
                 c.head_dim)
 
-    def logits(self, params, hidden: torch.Tensor,
-               weight_dtype=None) -> torch.Tensor:
-        """Logits of ``hidden`` through the tied embedding; with
-        ``weight_dtype`` its weights are first rounded to that dtype (and
-        computed with in ``hidden``'s). :meth:`decode_step` passes
-        bfloat16: the JAX package's calls ``logits`` without
-        ``compute_dtype``, whose default is bfloat16 (a fault of the
-        reference, carried so that tokens agree)."""
+    def logits(self, params, hidden: torch.Tensor, weight_dtype=None,
+               compute_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden`` through the tied embedding. With
+        ``compute_dtype`` (training's bfloat16) the weights are cast to it
+        and the product runs in it. With ``weight_dtype`` its weights are
+        only rounded to that dtype (and computed with in ``hidden``'s).
+        :meth:`decode_step` passes bfloat16: the JAX package's calls
+        ``logits`` without ``compute_dtype``, whose default is bfloat16 (a
+        fault of the reference, carried so that tokens agree)."""
         w = params["embed"]
-        if weight_dtype is not None:
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
+        elif weight_dtype is not None:
             w = w.to(weight_dtype).to(hidden.dtype)
         return hidden @ w.T
 

@@ -1,5 +1,7 @@
 """Shared model primitives: param templates, norms, RoPE, sinusoidal
-positions, MLPs, the causal depthwise conv of the xLSTM blocks.
+positions, MLPs, the causal depthwise conv of the xLSTM blocks, and the
+training pieces every model shares (:func:`remat_call`,
+:func:`masked_nll`).
 
 PyTorch twins of the JAX package's ``repro.models.layers``. A ``ParamSpec``
 template is the single source of truth per architecture: ``init_params``
@@ -11,11 +13,17 @@ shapes, so a JAX parameter tree carries across leaf for leaf
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 Params = Any  # nested dict of tensors
 
@@ -49,6 +57,16 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def unstack(tree) -> list:
+    """The per-layer trees of a tree stacked on a leading layer axis, each
+    leaf a view. Each leaf is unbound once, so autograd stacks a leaf's
+    layer gradients once, where a view a layer (``a[i]``) would add a
+    zero-filled copy of the whole stack for every layer."""
+    views = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_leaves(views)[0])
+    return [tree_map(lambda t, i=i: t[i], views) for i in range(n)]
 
 
 def _fan_in(spec: ParamSpec) -> int:
@@ -222,3 +240,52 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b
     return out, window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# training: rematerialisation and the masked token loss
+# ---------------------------------------------------------------------------
+
+#: ``remat`` values of the models' ``forward`` / ``loss_fn``: keep every
+#: activation, recompute each block in the backward, or recompute all but
+#: the outputs of the plain matrix products
+REMAT = ("none", "full", "dots")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    ``aten.mm`` (the products without batch dims; ``x @ w`` of a
+    ``[B, S, D]`` activation folds into one), recompute everything else.
+    The counterpart of ``jax.checkpoint_policies
+    .checkpoint_dots_with_no_batch_dims``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn: Callable, x: torch.Tensor, remat: str):
+    """``fn(x)`` under the ``remat`` policy (:data:`REMAT`): ``"full"``
+    and ``"dots"`` run it under ``torch.utils.checkpoint`` (non-reentrant,
+    so tensors ``fn`` closes over get their gradients)."""
+    if remat == "none":
+        return fn(x)
+    if remat == "full":
+        return checkpoint(fn, x, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, x, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    raise ValueError(f"unknown remat {remat!r} (expected one of {REMAT})")
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token NLL of float32 ``logits [B, S, V]`` over the labels
+    that are not negative. Returns ``(loss, lse [B, S], mask [B, S],
+    ntok)``, the pieces the models' ``loss_fn`` combine."""
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    ntok = mask.sum().clamp(min=1.0)
+    loss = ((lse - gold) * mask).sum() / ntok
+    return loss, lse, mask, ntok

@@ -4,14 +4,18 @@ PyTorch twin of the JAX package's ``repro.models.moe`` on one device:
 tokens are sorted by expert id and gathered into a capacity-bounded
 ``[E, C, D]`` buffer, the per-expert FFN is one batched product a weight
 (``torch.bmm``; plain XLA dots in the reference, no Pallas kernel), and
-the combine is a scatter-add weighted by the router gates. Tokens past an
-expert's capacity pass through the residual. Which tokens are dropped
-follows the reference exactly: a stable sort, ``searchsorted`` from the
-left, the capacity counted over every row passed in (padding included).
+the combine sums each token's ``k`` expert outputs weighted by the router
+gates. Tokens past an expert's capacity pass through the residual. Which
+tokens are dropped follows the reference exactly: a stable sort,
+``searchsorted`` from the left, the capacity counted over every row
+passed in (padding included).
 
-The combine is ``index_add_``: on a CUDA tensor its additions are atomic,
-so their order, and the last bits of a row summed from several experts,
-may differ between two runs on the same inputs.
+Dispatch and combine are gathers, and so are their backward passes: no
+row is summed by atomic additions on a CUDA tensor, and two runs on the
+same inputs give the same bits (training's exact resume needs that).
+The reference scatter-adds (``.at[token_idx].add``) in expert order; the
+combine here adds a token's ``k`` terms in choice order, so the two
+differ by float rounding when ``k > 2``.
 
 The reference's expert-parallel path (``shard_map`` over a ``'model'``
 mesh axis, ``repro/models/moe.py`` l.148-207) needs a device mesh, which
@@ -115,12 +119,22 @@ def dispatch_plan(ids: torch.Tensor, cfg: ModelConfig, cap: int,
 
 def dispatch(x: torch.Tensor, plan: DispatchPlan, cap: int,
              e_count: int) -> torch.Tensor:
-    """The ``[e_count, cap, D]`` buffer of kept tokens, zero elsewhere.
-    Dropped entries land in one extra row past the end, which is cut off
-    (the reference's ``.at[dst].set(..., mode="drop")``)."""
-    buf = x.new_zeros((e_count * cap + 1, x.shape[1]))
-    buf[plan.dst] = x[plan.token_idx]
-    return buf[:-1].view(e_count, cap, x.shape[1])
+    """The ``[e_count, cap, D]`` buffer of kept tokens, zero elsewhere
+    (the reference's ``.at[dst].set(..., mode="drop")``). Each slot reads
+    the entry it holds from x's rows repeated ``k`` times, an empty slot a
+    zero row past them: the gather's backward adds at most one term into
+    each entry, and a token's ``k`` entries are summed by the repeat's
+    backward, in a fixed order."""
+    t, d = x.shape
+    n = plan.order.numel()                         # T*k entries
+    k = n // max(t, 1)
+    # the entry in each slot; dropped entries write the extra last slot
+    src = torch.full((e_count * cap + 1,), n, dtype=plan.order.dtype,
+                     device=x.device)
+    src[plan.dst] = plan.order
+    rows = torch.cat([x[:, None].expand(t, k, d).reshape(n, d),
+                      x.new_zeros((1, d))])
+    return rows[src[:-1]].view(e_count, cap, d)
 
 
 def expert_ffn(buf: torch.Tensor, p_gate: torch.Tensor, p_up: torch.Tensor,
@@ -132,15 +146,15 @@ def expert_ffn(buf: torch.Tensor, p_gate: torch.Tensor, p_up: torch.Tensor,
 
 def combine(out_e: torch.Tensor, gates: torch.Tensor, plan: DispatchPlan,
             t: int) -> torch.Tensor:
-    """Each kept entry's expert output, weighted by its gate, added into
-    its token's row: ``[T, D]``."""
+    """Each token's kept entries' expert outputs, weighted by their gates
+    and summed over its ``k`` choices: ``[T, D]``. A dropped entry reads a
+    zero row past the buffer."""
     d = out_e.shape[-1]
-    flat = out_e.reshape(-1, d)
-    contrib = torch.where(plan.kept[:, None],
-                          flat[plan.dst.clamp(0, flat.shape[0] - 1)], 0.0)
-    gate_per = gates.reshape(-1)[plan.order][:, None].to(out_e.dtype)
-    return out_e.new_zeros((t, d)).index_add_(0, plan.token_idx,
-                                              contrib * gate_per)
+    flat = torch.cat([out_e.reshape(-1, d), out_e.new_zeros((1, d))])
+    dst = torch.empty_like(plan.dst)               # each entry's row,
+    dst[plan.order] = plan.dst                     # in token order
+    contrib = flat[dst] * gates.reshape(-1, 1).to(out_e.dtype)
+    return contrib.view(t, dst.numel() // max(t, 1), d).sum(dim=1)
 
 
 def _dispatch_compute_combine(x, p_gate, p_up, p_down, gates, ids, cfg,

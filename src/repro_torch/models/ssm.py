@@ -15,12 +15,16 @@ rounding, not bit for bit. ``mamba_forward`` drops the scan's final state,
 as the reference's does: prefill leaves no SSM state behind (a fault of
 the reference, carried; see ``TransformerLM.decode_step``).
 
-One deliberate difference in the mLSTM: ``mlstm_block_forward`` runs its
-chunkwise scan through ``ops.mlstm_scan(..., return_state=True)`` (the
-CUDA kernel on a CUDA tensor, the plain chunked version on the CPU), where
-the JAX function calls its jnp ``mlstm_cell_chunked`` and no caller
-reaches the Pallas kernel. The scan starts from the zero state: the JAX
-function's ``state=`` argument has no caller and is not carried.
+One deliberate difference in the mLSTM: the serving block
+``mlstm_block_forward`` runs its chunkwise scan through
+``ops.mlstm_scan(..., return_state=True)`` (the CUDA kernel on a CUDA
+tensor; on the CPU its plain version, which is :func:`mlstm_cell_chunked`
+in the kernel's layout), where the JAX function
+calls its jnp ``mlstm_cell_chunked`` and no caller reaches the Pallas
+kernel. The serving scan starts from the zero state: the JAX function's
+``state=`` argument has no caller and is not carried. Training's block,
+``mlstm_block_train``, calls the port's ``mlstm_cell_chunked`` as the
+reference does: the kernel is forward only.
 ``_slstm_scan`` is a sequential recurrence with no TPU kernel behind it
 and stays a plain loop.
 """
@@ -83,16 +87,14 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor
     ``(a0, b0) . (a1, b1) = (a1 a0, a1 b0 + b1)``: after it, ``b[:, t]`` is
     the state at ``t`` from a zero start and ``a[:, t]`` the product of the
     decays up to ``t``. Each doubling step reads the last step's tensors
-    and writes new ones: log2(len) steps."""
+    and writes new ones (nothing in place, so autograd differentiates it):
+    log2(len) steps."""
     n = a.shape[1]
     d = 1
     while d < n:
-        a2, b2 = torch.empty_like(a), torch.empty_like(b)
-        a2[:, :d] = a[:, :d]
-        b2[:, :d] = b[:, :d]
-        torch.mul(a[:, d:], a[:, :-d], out=a2[:, d:])
-        torch.addcmul(b[:, d:], a[:, d:], b[:, :-d], out=b2[:, d:])
-        a, b = a2, b2
+        a, b = (torch.cat([a[:, :d], torch.mul(a[:, d:], a[:, :-d])], dim=1),
+                torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:],
+                                                   b[:, :-d])], dim=1))
         d *= 2
     return a, b
 
@@ -229,6 +231,65 @@ def mlstm_cell_sequential(q, k, v, log_i, log_f, state=None):
     return out.to(q.dtype), state
 
 
+def mlstm_cell_chunked(q, k, v, log_i, log_f, chunk: int = 64):
+    """Stabilised chunkwise-parallel mLSTM from the zero state, the
+    reference's ``mlstm_cell_chunked`` (``repro/models/ssm.py:201-262``;
+    its ``state=`` has no caller and is not carried): q/k/v [B, S, H, dh],
+    log_i/log_f [B, S, H] (``log_f`` log-sigmoided). Returns (h [B, S, H,
+    dh] in q's dtype, (C [B, H, dh, dh], n [B, H, dh], m [B, H])),
+    computed in float32 (float64 for float64 inputs), ``S`` padded to a
+    multiple of ``chunk`` as the reference pads it (zeros for q/k/v,
+    ``log_i = NEG_INF``, ``log_f = 0``). Plain tensor operations, nothing
+    written in place: training's mLSTM cell, differentiated by autograd,
+    and in the kernel's layout the ``mlstm_scan`` kernel's plain version
+    (``kernels/ref.mlstm_chunked_ref``)."""
+    b, s, h, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+    dt = torch.promote_types(q.dtype, torch.float32)
+    # head-major from here on: [B, H, S, dh], the gates [B, H, S]
+    qh, kh, vh, log_i, log_f = (x.transpose(1, 2).to(dt)
+                                for x in (q, k, v, log_i, log_f))
+    if pad:
+        qh, kh, vh = (F.pad(x, (0, 0, 0, pad)) for x in (qh, kh, vh))
+        log_i = F.pad(log_i, (0, pad), value=NEG_INF)
+        log_f = F.pad(log_f, (0, pad))
+    dev = q.device
+    C = torch.zeros((b, h, dh, dh), dtype=dt, device=dev)
+    n = torch.zeros((b, h, dh), dtype=dt, device=dev)
+    m = torch.full((b, h), NEG_INF, dtype=dt, device=dev)
+    tmask = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    hs = []
+    for j in range(nchunks):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        qc, kc, vc = qh[:, :, sl], kh[:, :, sl], vh[:, :, sl]  # [B,H,c,dh]
+        li, lf = log_i[:, :, sl], log_f[:, :, sl]              # [B,H,c]
+        A = torch.cumsum(lf, dim=-1)                           # inclusive
+        # intra-chunk log weights W[t, s] = A_t - A_s + li_s (s <= t)
+        W = A[..., :, None] - A[..., None, :] + li[..., None, :]
+        W = torch.where(tmask, W, torch.full_like(W, NEG_INF))
+        binter = A + m[..., None]                              # carried state
+        m_loc = torch.maximum(W.amax(dim=-1), binter)
+        P = torch.exp(W - m_loc[..., None]) * (qc @ kc.transpose(-1, -2)
+                                               * scale)
+        e_inter = torch.exp(binter - m_loc)
+        num = P @ vc + e_inter[..., None] * (qc @ C)
+        den = P.sum(dim=-1) + e_inter * (qc @ n[..., None])[..., 0]
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_loc))[..., None])
+        # ---- state update to the end of the chunk ----
+        A_T = A[..., -1]
+        w_end = A_T[..., None] - A + li
+        m_new = torch.maximum(A_T + m, w_end.amax(dim=-1))
+        kw = kc * scale * torch.exp(w_end - m_new[..., None])[..., None]
+        decay = torch.exp(A_T + m - m_new)
+        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
+        n = decay[..., None] * n + kw.sum(dim=-2)
+        m = m_new
+    out = (torch.cat(hs, dim=2) if hs else qh)[:, :, :s]
+    return out.transpose(1, 2).to(q.dtype), (C, n, m)
+
+
 def _mlstm_proj(p, h, u, cu, num_heads: int):
     """q, k from the conv branch ``cu`` and v from ``u``, split into heads:
     [..., ud] -> [..., H, dh]."""
@@ -240,10 +301,10 @@ def _mlstm_proj(p, h, u, cu, num_heads: int):
     return q, k, v, gates[..., :num_heads], F.logsigmoid(gates[..., num_heads:])
 
 
-def mlstm_block_forward(p, x, cfg, *, chunk: int = 64, return_state=False,
-                        impl: str = "auto"):
-    """Full mLSTM residual block. x [B,S,D]. ``impl`` is the
-    ``ops.mlstm_scan`` impl of the scan."""
+def _mlstm_block(p, x, cfg, cell):
+    """The mLSTM residual block around ``cell(q, k, v, log_i, log_f) ->
+    (h [B, S, H, dh], state)``, all in the ``[B, S, H, ...]`` layout:
+    ``(x + out, state)``."""
     h = rms_norm(x, p["ln_w"], 1e-5)
     ud = p["conv_w"].shape[1]
     H = cfg.num_heads
@@ -251,16 +312,36 @@ def mlstm_block_forward(p, x, cfg, *, chunk: int = 64, return_state=False,
     u, z = upg[..., :ud], upg[..., ud:]
     cu = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
     b, s, _ = x.shape
-    q, k, v, log_i, log_f = _mlstm_proj(p, h, u, cu, H)
-    # the kernel's layout [B, H, S, dh]; the gates [B, H, S]
-    hout, st = ops.mlstm_scan(
-        *(t.transpose(1, 2).contiguous() for t in (q, k, v, log_i, log_f)),
-        chunk=chunk, impl=impl, return_state=True)
-    hout = group_norm(hout.transpose(1, 2).reshape(b, s, ud), p["gn_w"], H)
+    hout, st = cell(*_mlstm_proj(p, h, u, cu, H))
+    hout = group_norm(hout.reshape(b, s, ud), p["gn_w"], H)
     out = (hout * F.silu(z)) @ p["down_proj"]
-    if return_state:
-        return x + out, st
-    return x + out
+    return x + out, st
+
+
+def mlstm_block_forward(p, x, cfg, *, chunk: int = 64, return_state=False,
+                        impl: str = "auto"):
+    """Full mLSTM residual block of the serving path. x [B,S,D]. ``impl``
+    is the ``ops.mlstm_scan`` impl of the scan."""
+    def scan(q, k, v, log_i, log_f):
+        # the kernel's layout [B, H, S, dh]; the gates [B, H, S]
+        hout, st = ops.mlstm_scan(
+            *(t.transpose(1, 2).contiguous()
+              for t in (q, k, v, log_i, log_f)),
+            chunk=chunk, impl=impl, return_state=True)
+        return hout.transpose(1, 2), st
+
+    y, st = _mlstm_block(p, x, cfg, scan)
+    return (y, st) if return_state else y
+
+
+def mlstm_block_train(p, x, cfg, *, chunk: int = 64):
+    """Full mLSTM residual block in its training form, x [B,S,D]: the
+    scan is :func:`mlstm_cell_chunked`, as the reference's
+    ``mlstm_block_forward`` calls it (``repro/models/ssm.py:295``)."""
+    def cell(q, k, v, log_i, log_f):
+        return mlstm_cell_chunked(q, k, v, log_i, log_f, chunk=chunk)
+
+    return _mlstm_block(p, x, cfg, cell)[0]
 
 
 def mlstm_block_step(p, x_t, cfg, state):

@@ -5,7 +5,7 @@ PyTorch twin of the JAX package's ``repro.models.transformer.TransformerLM``
 for ``family == "dense"`` (phi3, phi4, minicpm, mistral-nemo, the
 libra-proxy model), ``family == "moe"`` (qwen2-moe, qwen3-moe: the FFN
 is ``models/moe.moe_ffn``, one call a layer over all ``B*S`` rows, padded
-positions included, at the serving paths' ``capacity_factor=2.0``) and
+positions included, at ``SERVE_CAPACITY_FACTOR``) and
 ``family == "hybrid"`` (hymba: each layer runs a Mamba mixer,
 ``models/ssm``, beside its attention on the same normed input and adds
 the mean of the two branches, each RMS-normed; attention is windowed on
@@ -24,10 +24,19 @@ prompt's KV as a contiguous cache, its attention through
 rewritten every step unless donated, full logits out). Parameters are the
 JAX package's nested dict, layers stacked on a leading axis; the large
 products stay ``torch.matmul``, as they are plain XLA dots there. Layers
-run in a Python loop (the JAX package scans them). Computation is float32.
+run in a Python loop (the JAX package scans them). Serving computes in
+float32.
 
-The ``encdec`` family is ``models/encdec.EncDecModel``. Training is not
-ported yet (``ROADMAP.md``, queue 1, item 4).
+Training (:meth:`TransformerLM.forward`, :meth:`TransformerLM.loss_fn`)
+follows the reference's training form: every parameter cast to
+``compute_dtype`` (bfloat16) first, attention through
+``attention.dense_or_blockwise`` (dense up to 1024 positions, the
+blockwise custom backward above; never the forward-only kernels), MoE
+layers at ``TRAIN_CAPACITY_FACTOR`` with their load-balancing loss, each
+layer rematerialised by ``remat`` (``layers.remat_call``), the stacked
+layer tensors unbound once a forward (``layers.unstack``).
+
+The ``encdec`` family is ``models/encdec.EncDecModel``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
@@ -46,15 +56,22 @@ from repro_torch.models.layers import (
     apply_rope,
     count_template_params,
     init_params,
+    masked_nll,
     mlp_apply,
     mlp_template,
+    remat_call,
     rms_norm,
     tree_map,
+    unstack,
 )
 
 #: the families this model serves (``registry.build_model`` builds the
 #: others' models)
 FAMILIES = ("dense", "moe", "hybrid", "vlm")
+#: an MoE layer's capacity factor on the serving paths and in training,
+#: the reference's values
+SERVE_CAPACITY_FACTOR = 2.0
+TRAIN_CAPACITY_FACTOR = 1.25
 
 
 def stack_template(tmpl: Dict, n: int) -> Dict:
@@ -186,8 +203,9 @@ class TransformerLM:
         comes first: ``img_embeds [B, img_tokens, D]`` (precomputed patch
         embeddings) times ``img_proj``, then the text's ``S_text`` tokens;
         it is required there (``ValueError`` without it, where the JAX
-        package asserts) and refused elsewhere."""
-        x = params["embed"][tokens.long()]
+        package asserts) and refused elsewhere. The image product runs in
+        the wider of the two dtypes, as JAX promotes."""
+        x = F.embedding(tokens.long(), params["embed"])
         if self.cfg.family != "vlm":
             if img_embeds is not None:
                 raise ValueError(f"{self.cfg.name}: img_embeds is for the "
@@ -195,20 +213,26 @@ class TransformerLM:
             return x
         if img_embeds is None:
             raise ValueError(f"{self.cfg.name}: vlm needs patch embeddings")
-        img = img_embeds @ params["img_proj"]
+        w = params["img_proj"]
+        dt = torch.promote_types(img_embeds.dtype, w.dtype)
+        img = img_embeds.to(dt) @ w.to(dt)
         return torch.cat([img.to(x.dtype), x], dim=1)
 
-    def logits(self, params, hidden: torch.Tensor,
-               weight_dtype=None) -> torch.Tensor:
-        """Logits of ``hidden``; with ``weight_dtype`` the head's weights
-        are first rounded to that dtype (and computed with in
-        ``hidden``'s). Both decode steps pass bfloat16: the JAX package's
-        call their ``logits`` without ``compute_dtype``, whose default is
-        bfloat16, so their head weights are rounded so (a fault of the
-        reference, carried so that tokens agree)."""
+    def logits(self, params, hidden: torch.Tensor, weight_dtype=None,
+               compute_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden``. With ``compute_dtype`` (training's
+        bfloat16) the head's weights are cast to it and the product runs
+        in it, as the reference's ``logits`` computes. With
+        ``weight_dtype`` the weights are only rounded to that dtype and
+        the product runs in ``hidden``'s: both decode steps pass bfloat16,
+        since the JAX package's call their ``logits`` without
+        ``compute_dtype``, whose default is bfloat16, on float32 hidden
+        states (a fault of the reference, carried so that tokens agree)."""
         c = self.cfg
         w = params["embed"].T if c.tie_embeddings else params["lm_head"]
-        if weight_dtype is not None:
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
+        elif weight_dtype is not None:
             w = w.to(weight_dtype).to(hidden.dtype)
         out = hidden @ w
         if c.embed_scale != 1.0:
@@ -244,18 +268,98 @@ class TransformerLM:
                        + rms_norm(ssm_out, lp["ssm_branch_norm"], c.norm_eps))
         return x + mixed * c.residual_scale
 
-    def _mlp_residual(self, lp, x: torch.Tensor) -> torch.Tensor:
-        """The FFN block over x [..., D]. A ``moe`` layer routes all of
-        x's rows in one call, as every serving path of the reference does
-        (capacity is per call, so the rows decide each other's drops)."""
+    def _mlp_residual(self, lp, x: torch.Tensor,
+                      capacity_factor: float = SERVE_CAPACITY_FACTOR
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The FFN block over x [..., D]: ``(x + its output, aux)``, ``aux``
+        the MoE load-balancing loss (a float32 zero under a dense FFN). A
+        ``moe`` layer routes all of x's rows in one call, as every path of
+        the reference does (capacity is per call, so the rows decide each
+        other's drops)."""
         c = self.cfg
         h2 = rms_norm(x, lp["ln2"], c.norm_eps)
         if c.family == "moe":
-            out = moe_lib.moe_ffn(lp["moe"], h2.reshape(-1, c.d_model), c,
-                                  capacity_factor=2.0).reshape(x.shape)
+            out, aux = moe_lib.moe_ffn(
+                lp["moe"], h2.reshape(-1, c.d_model), c,
+                capacity_factor=capacity_factor, return_aux=True)
+            out = out.reshape(x.shape)
         else:
             out = mlp_apply(lp["mlp"], h2, c.act)
-        return x + out * c.residual_scale
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + out * c.residual_scale, aux
+
+    # ------------------------------------------------------------------
+    # training: full forward and loss
+    # ------------------------------------------------------------------
+    def _train_layer(self, lp, x: torch.Tensor, positions: torch.Tensor,
+                     window: int):
+        """One block in its training form: ``(x, aux)``, ``aux`` the MoE
+        load-balancing loss of the layer (float32 zero elsewhere). The
+        reference's ``_layer`` without a KV writer."""
+        c = self.cfg
+        b, s, _ = x.shape
+        h = rms_norm(x, lp["ln1"], c.norm_eps)
+        q, k, v = self._qkv(lp, h, positions)
+        out = attn.dense_or_blockwise(q, k, v, positions, positions,
+                                      causal=True, window=window)
+        ssm_out = (ssm_lib.mamba_forward(lp["ssm"], h)
+                   if c.family == "hybrid" else None)
+        x = self._mixer_residual(lp, x, out.reshape(b, s, c.q_dim) @ lp["wo"],
+                                 ssm_out)
+        return self._mlp_residual(lp, x, TRAIN_CAPACITY_FACTOR)
+
+    def forward(self, params, tokens: torch.Tensor,
+                img_embeds: Optional[torch.Tensor] = None, *,
+                compute_dtype=torch.bfloat16, remat: str = "full"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward of ``tokens [B, S_text]`` (after the image
+        under ``vlm``): ``(final hidden [B, S, D] in compute_dtype, total
+        aux loss)``. Every parameter is cast to ``compute_dtype`` first;
+        ``remat`` is one of ``layers.REMAT``, applied to each layer."""
+        c = self.cfg
+        p = tree_map(lambda a: a.to(compute_dtype), params)
+        x = self.embed(p, tokens, img_embeds)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        layers = unstack(p["layers"])
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for grp in layer_groups(c):
+            auxs = []
+            for lp in layers[grp.start:grp.end]:
+                def layer(xx, lp=lp, window=grp.window):
+                    return self._train_layer(lp, xx, positions, window)
+                x, aux = remat_call(layer, x, remat)
+                auxs.append(aux)
+            aux_total = aux_total + torch.stack(auxs).sum()
+        return rms_norm(x, p["final_norm"], c.norm_eps), aux_total
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
+                remat: str = "full") -> Tuple[torch.Tensor, Dict]:
+        """batch: tokens [B, S], labels [B, S] (-1 = masked), and under
+        ``vlm`` img_embeds [B, img_tokens, D]. Returns ``(total, metrics)``:
+        the masked NLL plus a z-loss of ``1e-4 * lse**2`` plus
+        ``router_aux_coef * aux``; the image prefix carries no loss. The
+        head is a bfloat16 product (:meth:`logits` with
+        ``compute_dtype``), then widened to float32."""
+        hidden, aux = self.forward(params, batch["tokens"],
+                                   img_embeds=batch.get("img_embeds"),
+                                   remat=remat)
+        return self.head_loss(params, hidden, batch["labels"], aux)
+
+    def head_loss(self, params, hidden: torch.Tensor, labels: torch.Tensor,
+                  aux: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """:meth:`loss_fn` past the forward: the head and the losses of
+        ``hidden`` (the forward's output) against ``labels``."""
+        c = self.cfg
+        if c.family == "vlm":  # img prefix carries no loss
+            hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+        logits = self.logits(params, hidden,
+                             compute_dtype=torch.bfloat16).float()
+        loss, lse, mask, ntok = masked_nll(logits, labels)
+        zloss = 1e-4 * (lse.square() * mask).sum() / ntok
+        total = loss + zloss + c.router_aux_coef * aux
+        return total, {"loss": loss, "zloss": zloss, "aux": aux,
+                       "ntok": ntok}
 
     # ------------------------------------------------------------------
     # serving: Libra fast path (paged, anchored)
@@ -323,7 +427,7 @@ class TransformerLM:
                     ssm_state[key][li].copy_(val)
             x = self._mixer_residual(lp, x, out.reshape(b, c.q_dim) @ lp["wo"],
                                      ssm_out)
-            x = self._mlp_residual(lp, x)
+            x, _aux = self._mlp_residual(lp, x)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
         return self.logits(params, x, weight_dtype=torch.bfloat16
                            ).argmax(dim=-1).to(torch.int32)
@@ -379,7 +483,7 @@ class TransformerLM:
                        if c.family == "hybrid" else None)
             x = self._mixer_residual(lp, x, out.reshape(b, s, c.q_dim)
                                      @ lp["wo"], ssm_out)
-            x = self._mlp_residual(lp, x)
+            x, _aux = self._mlp_residual(lp, x)
         # sample the first output token from the last valid position
         idx = (seq_lens.long() - 1).clamp(min=0) + (s - tokens.shape[1])
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
@@ -416,7 +520,7 @@ class TransformerLM:
             kv[li, :, :s, 1] = v
             out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
             x = x + (out.reshape(b, s, c.q_dim) @ lp["wo"]) * c.residual_scale
-            x = self._mlp_residual(lp, x)
+            x, _aux = self._mlp_residual(lp, x)
         idx = (seq_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
@@ -460,6 +564,6 @@ class TransformerLM:
                                        seq_lens[:, None], pos_kv,
                                        causal=False, kv_valid=valid)[:, 0]
             x = x + (out.reshape(b, c.q_dim) @ lp["wo"]) * c.residual_scale
-            x = self._mlp_residual(lp, x)
+            x, _aux = self._mlp_residual(lp, x)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
         return self.logits(params, x, weight_dtype=torch.bfloat16), cache

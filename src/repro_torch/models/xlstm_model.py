@@ -17,14 +17,18 @@ the decode state in place (JAX returns a new tree); prefill computes the
 conv window from the last ``K-1`` positions only, the rows the JAX model
 slices from its full-length recomputation. ``decode_step`` rounds the
 head's weights to bfloat16, as the JAX model's does (see ``logits``).
-``forward`` and ``loss_fn`` belong to training and are not ported yet
-(``ROADMAP.md``, queue 1, item 4).
+
+Training (:meth:`XLSTMModel.forward`, :meth:`XLSTMModel.loss_fn`) casts
+every parameter to bfloat16 first, as the reference does, runs each
+mLSTM block's scan through ``ssm.mlstm_cell_chunked`` (the kernel is
+forward only) and rematerialises each block by ``remat``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
@@ -32,14 +36,18 @@ from repro_torch.models.layers import (
     ParamSpec,
     count_template_params,
     init_params,
+    masked_nll,
+    remat_call,
     rms_norm,
     tree_map,
+    unstack,
 )
 from repro_torch.models.ssm import (
     NEG_INF,
     mlstm_block_forward,
     mlstm_block_step,
     mlstm_block_template,
+    mlstm_block_train,
     slstm_block_forward,
     slstm_block_step,
     slstm_block_template,
@@ -125,18 +133,56 @@ class XLSTMModel:
     def param_count(self) -> int:
         return count_template_params(self.template())
 
-    def logits(self, params, hidden: torch.Tensor,
-               weight_dtype=None) -> torch.Tensor:
-        """Logits of ``hidden``; with ``weight_dtype`` the head's weights
-        are first rounded to that dtype (and computed with in
-        ``hidden``'s). ``decode_step`` passes bfloat16: the JAX model's
-        calls ``logits`` without ``compute_dtype``, whose default is
-        bfloat16 (a fault of the reference, carried so that tokens agree;
-        ``prefill`` passes its compute dtype there and stays float32)."""
+    def logits(self, params, hidden: torch.Tensor, weight_dtype=None,
+               compute_dtype=None) -> torch.Tensor:
+        """Logits of ``hidden``. With ``compute_dtype`` (training's
+        bfloat16) the head's weights are cast to it and the product runs
+        in it. With ``weight_dtype`` the head's weights are only rounded
+        to that dtype (and computed with in ``hidden``'s).
+        ``decode_step`` passes bfloat16: the JAX model's calls ``logits``
+        without ``compute_dtype``, whose default is bfloat16 (a fault of
+        the reference, carried so that tokens agree; ``prefill`` passes
+        its compute dtype there and stays float32)."""
         w = params["lm_head"]
-        if weight_dtype is not None:
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
+        elif weight_dtype is not None:
             w = w.to(weight_dtype).to(hidden.dtype)
         return hidden @ w
+
+    # -- training ------------------------------------------------------------
+    def forward(self, params, tokens: torch.Tensor, *,
+                compute_dtype=torch.bfloat16, remat: str = "full"):
+        """Training forward: ``(final hidden [B, S, D] in compute_dtype,
+        aux)``, ``aux`` a float32 zero (no router). Blocks run in position
+        order, each under ``remat``."""
+        c = self.cfg
+        p = tree_map(lambda a: a.to(compute_dtype), params)
+        x = F.embedding(tokens.long(), p["embed"])
+        stacks = {kind: unstack(p[kind])
+                  for kind in ("mlstm", "slstm") if kind in p}
+        for kind, i in _blocks(self.kinds):
+            lp = stacks[kind][i]
+            if kind == "mlstm":
+                def block(xx, lp=lp):
+                    return mlstm_block_train(lp, xx, c)
+            else:
+                def block(xx, lp=lp):
+                    return slstm_block_forward(lp, xx, c)
+            x = remat_call(block, x, remat)
+        x = rms_norm(x, p["final_norm"], c.norm_eps)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
+                remat: str = "full"):
+        """The masked next-token NLL of ``batch`` (tokens, labels; -1 =
+        masked), with no z-loss, as the reference's. The head is a
+        bfloat16 product widened to float32."""
+        hidden, _ = self.forward(params, batch["tokens"], remat=remat)
+        logits = self.logits(params, hidden,
+                             compute_dtype=torch.bfloat16).float()
+        loss, _lse, _mask, ntok = masked_nll(logits, batch["labels"])
+        return loss, {"loss": loss, "ntok": ntok}
 
     # -- serving -----------------------------------------------------------
     def decode_state_shapes(self, batch: int) -> Dict[str, Tuple[int, ...]]:

@@ -1,0 +1,388 @@
+"""Twin of ``tests/test_training_ft.py``: the port's optimizer, data
+pipeline, checkpointer, fault-tolerance helpers and ``Trainer``, on the
+CPU, against the JAX package where both compute the same thing.
+
+Held:
+- the reference's own checks on the port: loss decreases, a resumed run
+  continues exactly (``1e-5``), preemption writes its checkpoint, a stray
+  ``.tmp`` is ignored, the elastic plan, the straggler monitor;
+- ``lr_at`` of every schedule equal to the JAX package's; ``adamw_update``
+  within ``ADAMW_TOL`` of it over three steps; the int8 quantiser equal;
+  pipeline batches byte-equal, across a resume too;
+- checkpoints interchangeable: the same files and keys as the JAX
+  ``Checkpointer`` writes, the port's ``Trainer`` resuming a checkpoint of
+  the JAX ``Trainer`` (reduced libra-proxy, 10 steps) and its next 5
+  losses within ``TRAJ_TOL`` of the JAX trainer's own continuation, and
+  the other way round;
+- ``launch/train.py`` and the two examples with ``--device cpu``;
+- no module of the port, the examples of the port or ``chip_smoke.py``
+  imports ``jax`` or ``repro`` (on their ASTs).
+
+The reference's ``test_elastic_restore_other_mesh`` and
+``test_gradient_compression_close_to_exact`` need a device mesh and a
+process group: they wait for ``ROADMAP.md``, queue 1, item 5.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+from repro.configs import get_reduced as j_reduced
+from repro.data.pipeline import DataPipeline as JPipeline
+from repro.data.pipeline import SyntheticCorpus as JCorpus
+from repro.distributed.fault_tolerance import (
+    StragglerMonitor as JStragglerMonitor,
+    plan_elastic_restart as j_plan_elastic_restart,
+)
+from repro.models.registry import build_model as j_build
+from repro.training import optimizer as jopt
+from repro.training.train_loop import Trainer as JTrainer
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs import get_reduced
+from repro_torch.data.pipeline import DataPipeline, PipelineState, SyntheticCorpus
+from repro_torch.distributed.fault_tolerance import (
+    StragglerMonitor,
+    plan_elastic_restart,
+)
+from repro_torch.launch import train as tlaunch
+from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.registry import build_model
+from repro_torch.training import optimizer as topt
+from repro_torch.training.optimizer import (
+    AdamWConfig,
+    adamw_update,
+    init_adamw,
+    lr_at,
+)
+from repro_torch.training.train_loop import Trainer
+
+ROOT = Path(__file__).resolve().parents[1]
+#: a resumed run against the continued run, on one device
+RESUME_TOL = 1e-5
+#: the port against JAX after the same steps from the same state: both
+#: train in bfloat16 and round at different places (measured 1.5e-3
+#: after 5 steps, 2.1e-3 over 10 from one initialisation)
+TRAJ_TOL = 1e-2
+#: AdamW in float32, relative to the parameter scale
+ADAMW_TOL = dict(atol=1e-6, rtol=1e-5)
+OPT = dict(lr=3e-3, warmup_steps=5, total_steps=200)
+
+
+def _mk_trainer(tmp, steps_cfg=None, ckpt_every=5):
+    cfg = get_reduced("libra-proxy-125m")
+    model = build_model(cfg)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=1)
+    pipe = DataPipeline(corpus, batch=4, seq_len=32)
+    opt = steps_cfg or AdamWConfig(**OPT)
+    return Trainer(model, opt, pipe, checkpoint_dir=tmp,
+                   checkpoint_every=ckpt_every, seed=0, device="cpu")
+
+
+def _mk_jax_trainer(tmp, ckpt_every=10 ** 6):
+    cfg = j_reduced("libra-proxy-125m")
+    pipe = JPipeline(JCorpus(cfg.vocab_size, seed=1), batch=4, seq_len=32)
+    return JTrainer(j_build(cfg), jopt.AdamWConfig(**OPT), pipe,
+                    checkpoint_dir=tmp, checkpoint_every=ckpt_every, seed=0)
+
+
+# -- the reference's checks, on the port ---------------------------------------
+
+def test_loss_decreases(tmp_path):
+    t = _mk_trainer(str(tmp_path))
+    hist = t.train(30)
+    first = np.mean([h["loss"] for h in hist[:5]])
+    last = np.mean([h["loss"] for h in hist[-5:]])
+    assert last < first - 0.5, (first, last)
+    assert set(hist[0]) == {"step", "loss", "lr", "grad_norm", "time"}
+
+
+def test_checkpoint_resume_exact(tmp_path):
+    t1 = _mk_trainer(str(tmp_path / "a"), ckpt_every=10 ** 6)
+    t1.train(10)
+    t1.save(blocking=True)
+    loss_continue = t1.train(5)[-1]["loss"]
+
+    t2 = _mk_trainer(str(tmp_path / "a"), ckpt_every=10 ** 6)
+    assert t2.resume()
+    assert t2.step == 10
+    loss_resumed = t2.train(5)[-1]["loss"]
+    assert abs(loss_continue - loss_resumed) < RESUME_TOL, \
+        "restart must continue exactly (params+opt+data state)"
+
+
+def test_preemption_checkpoint(tmp_path):
+    t = _mk_trainer(str(tmp_path))
+    t.train(3)
+    t._preempted = True  # simulated SIGTERM
+    t.train(10)
+    assert t.step == 3  # stopped immediately
+    assert t.ckpt.latest_step() == 3  # final checkpoint written
+
+
+def test_atomic_commit_survives_partial_save(tmp_path):
+    t = _mk_trainer(str(tmp_path))
+    t.train(6)
+    t.save(blocking=True)
+    # simulate a crash mid-save: stray .tmp dir must be ignored
+    os.makedirs(str(tmp_path / "step_000000099.tmp"))
+    t2 = _mk_trainer(str(tmp_path))
+    assert t2.resume()
+    assert t2.step in (5, 6)
+
+
+def test_resume_onto_a_mesh_waits_for_the_port_mesh(tmp_path):
+    t = _mk_trainer(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        t.resume(mesh=object())
+
+
+def test_trainer_refuses_cuda_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    cfg = get_reduced("libra-proxy-125m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(build_model(cfg), AdamWConfig(**OPT),
+                DataPipeline(SyntheticCorpus(cfg.vocab_size), 2, 8))
+
+
+def test_elastic_plan():
+    p = plan_elastic_restart(2, 1)
+    assert p.mesh_shape == (16, 16) and p.global_batch_scale == 0.5
+    for total, lost, keep in ((2, 1, False), (4, 1, True), (3, 2, False)):
+        assert vars(plan_elastic_restart(total, lost, keep)) == \
+            vars(j_plan_elastic_restart(total, lost, keep))
+
+
+def test_straggler_monitor():
+    mons = (StragglerMonitor(n_slices=4, factor=1.5, patience=2),
+            JStragglerMonitor(n_slices=4, factor=1.5, patience=2))
+    rng = np.random.default_rng(0)
+    for step in range(12):
+        times = [float(1.0 + 0.1 * rng.random()) if s != 3 else 3.0
+                 for s in range(4)]  # slice 3 is slow
+        bad = []
+        for mon in mons:
+            for s in range(4):
+                mon.record(s, times[s])
+            bad.append(mon.evaluate())
+        assert bad[0] == bad[1]
+    assert bad[0] == [3]
+
+
+# -- optimizer and schedules against the JAX package --------------------------
+
+@pytest.mark.parametrize("schedule", ["cosine", "wsd", "constant"])
+def test_lr_schedules_match_jax(schedule):
+    kw = dict(lr=1.0, warmup_steps=10, total_steps=100, schedule=schedule)
+    got = [float(lr_at(AdamWConfig(**kw), s)) for s in range(0, 111)]
+    want = [float(jopt.lr_at(jopt.AdamWConfig(**kw), jnp.int32(s)))
+            for s in range(0, 111)]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    if schedule == "wsd":  # the reference test's shape
+        lrs = got[0:101:5]
+        assert lrs[0] < 0.2              # warmup
+        assert abs(lrs[10] - 1.0) < 1e-6  # stable plateau
+        assert lrs[-1] < 0.05            # decay tail
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+def test_adamw_update_matches_jax(grad_clip):
+    rng = np.random.default_rng(0)
+    shapes = {"a": (5, 7), "b": {"c": (3,), "d": (2, 4, 3)}}
+    def tree(scale):
+        return tree_map(lambda s: (scale * rng.standard_normal(s)
+                                   ).astype(np.float32), shapes)
+    cfg = dict(lr=1e-2, warmup_steps=2, total_steps=10, grad_clip=grad_clip)
+    params = tree(1.0)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.init_adamw(jp)
+    tp = tree_map(torch.tensor, params)
+    ts = init_adamw(tp)
+    for _ in range(3):
+        grads = tree(3.0)
+        jp, js, jm = jopt.adamw_update(jopt.AdamWConfig(**cfg), jp,
+                                       jax.tree.map(jnp.asarray, grads), js)
+        tp, ts, tm = adamw_update(AdamWConfig(**cfg), tp,
+                                  tree_map(torch.tensor, grads), ts)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+    assert int(ts.step) == int(js.step) == 3
+    for t, j in zip(tree_leaves(tp) + tree_leaves(ts.mu) + tree_leaves(ts.nu),
+                    jax.tree.leaves(jp) + jax.tree.leaves(js.mu)
+                    + jax.tree.leaves(js.nu)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **ADAMW_TOL)
+
+
+def test_int8_quantiser_matches_jax():
+    x = np.random.default_rng(1).standard_normal((64, 64)).astype(np.float32)
+    q, s = topt.quantize_int8(torch.tensor(x))
+    jq, js = jopt.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(float(s), float(js), rtol=1e-7)
+    np.testing.assert_allclose(topt.dequantize_int8(q, s).numpy(),
+                               np.asarray(jopt.dequantize_int8(jq, js)),
+                               rtol=1e-7)
+
+
+# -- data pipeline ----------------------------------------------------------------
+
+def test_pipeline_batches_byte_equal_to_the_reference():
+    pipes = (DataPipeline(SyntheticCorpus(256, num_shards=2,
+                                          docs_per_shard=3, seed=4), 3, 40),
+             JPipeline(JCorpus(256, num_shards=2, docs_per_shard=3, seed=4),
+                       3, 40))
+    for _ in range(5):  # wraps shards and an epoch
+        got, want = (p.next_batch() for p in pipes)
+        for k in ("tokens", "labels", "meta"):
+            assert got[k].dtype == want[k].dtype
+            assert got[k].tobytes() == want[k].tobytes()
+        assert pipes[0].state.as_dict() == pipes[1].state.as_dict()
+    resumed = DataPipeline(SyntheticCorpus(256, num_shards=2,
+                                           docs_per_shard=3, seed=4), 3, 40,
+                           state=PipelineState.from_dict(
+                               pipes[1].state.as_dict()))
+    assert resumed.next_batch()["tokens"].tobytes() == \
+        pipes[1].next_batch()["tokens"].tobytes()
+
+
+# -- checkpoints shared with the JAX package --------------------------------------
+
+def _layout(path):
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return sorted(os.listdir(path)), meta
+
+
+def test_checkpoint_layout_matches_jax(tmp_path):
+    jt = _mk_jax_trainer(str(tmp_path / "jax"))
+    jt.train(2)
+    jt.save(blocking=True)
+    t = _mk_trainer(str(tmp_path / "port"), ckpt_every=10 ** 6)
+    t.train(2)
+    t.save(blocking=True)
+    j_files, j_meta = _layout(str(tmp_path / "jax" / "step_000000002"))
+    t_files, t_meta = _layout(str(tmp_path / "port" / "step_000000002"))
+    assert t_files == j_files
+    assert "opt__.step.npy" in t_files and "params__embed.npy" in t_files
+    assert t_meta["leaves"] == j_meta["leaves"]
+    assert t_meta["step"] == j_meta["step"] == 2
+    assert t_meta["extra"] == j_meta["extra"]
+
+
+def test_checkpointer_restores_a_tree_of_the_jax_checkpointer(tmp_path):
+    tree = {"b": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "a": {"z": np.int32(7), "y": np.ones((4,), np.float32)}}
+    JCheckpointer(str(tmp_path)).save(5, jax.tree.map(jnp.asarray, tree),
+                                      {"k": 1}, blocking=True)
+    like = tree_map(torch.tensor, tree)
+    ck = Checkpointer(str(tmp_path))
+    got, extra = ck.restore(ck.latest_step(), like, device="cpu")
+    assert extra == {"k": 1}
+    for g, w in zip(tree_leaves(got), tree_leaves(tree)):
+        assert g.dtype == torch.from_numpy(np.asarray(w)).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_port_trainer_resumes_a_jax_checkpoint(tmp_path):
+    """The JAX ``Trainer`` trains 10 steps and saves; the port's resumes
+    that checkpoint, and its next 5 losses follow the JAX trainer's own
+    continuation."""
+    jt = _mk_jax_trainer(str(tmp_path))
+    jt.train(10)
+    jt.save(blocking=True)
+    want = [h["loss"] for h in jt.train(5)[-5:]]
+    t = _mk_trainer(str(tmp_path), ckpt_every=10 ** 6)
+    assert t.resume()
+    assert t.step == 10
+    assert int(t.opt_state.step) == 10
+    got = [h["loss"] for h in t.train(5)]
+    np.testing.assert_allclose(got, want, atol=TRAJ_TOL)
+
+
+def test_jax_trainer_resumes_a_port_checkpoint(tmp_path):
+    t = _mk_trainer(str(tmp_path), ckpt_every=10 ** 6)
+    t.train(10)
+    t.save(blocking=True)
+    want = [h["loss"] for h in t.train(5)[-5:]]
+    jt = _mk_jax_trainer(str(tmp_path))
+    assert jt.resume()
+    assert jt.step == 10
+    got = [h["loss"] for h in jt.train(5)]
+    np.testing.assert_allclose(got, want, atol=TRAJ_TOL)
+
+
+# -- entry points -----------------------------------------------------------------
+
+def test_launch_train_runs_and_resumes(tmp_path, capsys):
+    ck, log = str(tmp_path / "ck"), str(tmp_path / "hist.json")
+    argv = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "32",
+            "--ckpt", ck, "--ckpt-every", "6"]
+    hist = tlaunch.main(argv + ["--steps", "12", "--log", log])
+    assert [h["step"] for h in hist] == list(range(1, 13))
+    with open(log) as f:
+        assert json.load(f) == hist
+    out = capsys.readouterr().out
+    assert out.startswith("arch=libra-proxy-reduced params=0.1M devices=1")
+    assert "final loss" in out
+    more = tlaunch.main(argv + ["--steps", "15", "--resume"])
+    assert "resumed from step 12" in capsys.readouterr().out
+    assert [h["step"] for h in more] == [13, 14, 15]
+
+
+def _run_example(name, *args):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    res = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                          "--device", "cpu", *args], capture_output=True,
+                         text=True, env=env, timeout=600, check=True)
+    return res.stdout.splitlines()
+
+
+def test_quickstart_example_runs_on_cpu():
+    lines = _run_example("quickstart_torch.py", "--steps", "30")
+    loss = next(l for l in lines if l.startswith("loss: "))
+    first, last = (float(x) for x in loss[len("loss: "):].split(" -> "))
+    assert last < first
+    assert any(l.startswith("served 6 requests") for l in lines)
+    assert any("(copied across the boundary: 0 MB)" in l for l in lines)
+
+
+def test_train_driver_example_runs_on_cpu(tmp_path):
+    lines = _run_example("train_driver_torch.py", "--steps", "40",
+                         "--ckpt", str(tmp_path))
+    assert lines[1] == "fresh start"
+    assert "[preempted] checkpoint at step 24" in lines
+    assert "[phase 2] resumed at step 24" in lines
+    assert lines[-1].startswith("[done] step 40")
+
+
+# -- the port imports no JAX ---------------------------------------------------------
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+
+
+def test_the_port_imports_no_jax_and_nothing_of_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py"]
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
+    assert any(f.name == "train_loop.py" for f in files)
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
