@@ -15,13 +15,19 @@ artifacts with a change is the convention: they are the trajectory that
     LIBRA_BENCH_SMOKE=1 PYTHONPATH=src python -m benchmarks_torch.run \\
         --smoke --device cpu
 
-The reference's ``fig6c_ktls`` (an attention microbenchmark) and its
-roofline summary of the dry-run artifacts are not ported yet.
+After the benches (unless ``--smoke``, or ``--only`` names another bench)
+it prints the roofline summary of the port's dry-run artifacts
+(``results/dryrun_torch/``, written by ``repro_torch.launch.dryrun``), as
+the reference's does of its own; ``--only roofline`` prints only that.
+The reference's ``fig6c_ktls`` (an attention microbenchmark) is not
+ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import importlib
+import json
 import os
 import time
 from typing import Optional, Sequence
@@ -57,6 +63,34 @@ SMOKE_BENCHES = [
     ("chaos_proxy", "benchmarks_torch.bench_chaos_proxy"),
     ("fig6e_single_stream", "benchmarks_torch.bench_single_stream"),
 ]
+
+def roofline_summary() -> None:
+    """Collapse results/dryrun_torch/*.json into the roofline table lines:
+    a cell's step time is the largest of its three terms on an H100."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(here, "results", "dryrun_torch",
+                                          "*.json")))
+    if not files:
+        print("roofline_summary,0.0,no dryrun artifacts "
+              "(run repro_torch.launch.dryrun)")
+        return
+    for f in files:
+        with open(f) as fh:
+            r = json.load(fh)
+        cell = f"{r['arch']}/{r['shape']}/{r['mesh']}"
+        if r.get("skipped"):
+            print(f"roofline_{cell},0.0,SKIP ({r['reason'][:60]})")
+            continue
+        if not r.get("ok"):
+            print(f"roofline_{cell},0.0,FAIL {r.get('error', '')[:80]}")
+            continue
+        t = r["roofline"]
+        step_s = max(t["compute_s"], t["memory_s"], t["collective_s"])
+        print(f"roofline_{cell},{step_s * 1e6:.1f},"
+              f"dom={t['dominant']} comp={t['compute_s']:.4f} "
+              f"mem={t['memory_s']:.4f} coll={t['collective_s']:.4f} "
+              f"useful={t['useful_ratio']:.2f}")
+
 
 #: the bench that writes its own artifact, so takes the output directory
 SELF_FLUSHING = ("dma_overlap",)
@@ -103,8 +137,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.smoke:
         os.environ["LIBRA_BENCH_SMOKE"] = "1"
         benches = SMOKE_BENCHES
-    failures = run(benches, device=args.device, out_dir=args.out,
-                   only=args.only)
+    failures = 0
+    if any(not args.only or args.only in name for name, _ in benches):
+        failures = run(benches, device=args.device, out_dir=args.out,
+                       only=args.only)
+    if not args.smoke and (not args.only or "roofline" in args.only):
+        print("# --- roofline (from dry-run artifacts) ---")
+        roofline_summary()
     if failures:
         raise SystemExit(f"{failures} benchmark module(s) errored")
 

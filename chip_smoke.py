@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
-the 20 phases below, in order but where a phase says when it runs:
+the 21 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -302,6 +302,26 @@ the 20 phases below, in order but where a phase says when it runs:
    every arch the ``Trainer`` feeds (tokens alone: not vlm, encdec), 2 x
    128 positions, the exact-resume twin of (a) within 1e-5 (MoE
    included; the xLSTM's mLSTM blocks run two chunks).
+21. **mesh** (after phase 20) -- the port's mesh on the one card: a
+   one-rank NCCL group (``init_method`` on 127.0.0.1) and a
+   ``(data=1, model=1)`` ``DeviceMesh`` on ``cuda``; NCCL must start (no
+   fallback to another backend or to the mesh-less path). (a)
+   phi4-mini-3.8b at full width and depth driven through ``prefill`` /
+   ``decode_step`` on a ``PagedKVPool``, 4 requests of 256 tokens, 8 new:
+   once without a mesh and once through the mesh keywords with every
+   input a DTensor (the parameters placed by the serving rules), each
+   run launching ``flash_attention`` once a layer a prefill and
+   ``paged_attention`` once a layer a step; the tokens must be identical.
+   Prints each run's wall ms a step and a profiled step's device ms (the
+   paged attention and its combine's all-reduces apart). (b)
+   libra-proxy-125m at full size: a mesh-less ``Trainer`` checkpoints at
+   step 5, a ``Trainer(mesh=...)`` resumes it onto the mesh's placements,
+   and its 3 losses must be within 1e-5 of the continued run's. (c)
+   ``compressed_psum`` of a seeded 4096 x 4096 gradient: within 2e-2 of
+   the exact mean, the residual its quantisation error. The group is
+   destroyed; then (d) the dry-run of phi4-mini-3.8b ``decode_32k`` on
+   the single pod (rank 0 of a 256-rank fake group, fake CPU tensors),
+   its memory, counts and roofline terms on the H100 row printed.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -4230,7 +4250,7 @@ def train_stats(ts: TrainSize, hist, torch) -> dict:
             "grad_norms": [h["grad_norm"] for h in hist]}
 
 
-def new_trainer(ts: TrainSize, cfg, dev, ckpt_dir=None):
+def new_trainer(ts: TrainSize, cfg, dev, ckpt_dir=None, mesh=None):
     from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
     from repro_torch.models.registry import build_model
     from repro_torch.training.optimizer import AdamWConfig
@@ -4240,7 +4260,7 @@ def new_trainer(ts: TrainSize, cfg, dev, ckpt_dir=None):
                         batch=ts.batch, seq_len=ts.seq)
     return Trainer(build_model(cfg), AdamWConfig(**TRAIN_OPT), pipe,
                    checkpoint_dir=ckpt_dir, checkpoint_every=10 ** 6,
-                   remat=ts.remat, seed=ts.seed, device=dev)
+                   remat=ts.remat, seed=ts.seed, device=dev, mesh=mesh)
 
 
 def resume_twin(ts: TrainSize, cfg, dev, ck: str, hist: list):
@@ -4608,6 +4628,295 @@ def train_phase(dev, torch, np) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the mesh
+# ---------------------------------------------------------------------------
+
+#: (a) phi4-mini at full width and depth through the mesh keywords
+MESH_SERVE = ServeSize(arch="phi4-mini-3.8b", requests=4, max_batch=4,
+                       prompt=256, gen=8, timing_context=264)
+#: (b) the trainer resumes a mesh-less checkpoint at this step and trains
+#: this many steps on the mesh
+MESH_SAVE_AT = 5
+MESH_RESUME_STEPS = 3
+#: (c) compressed_psum's mean against the exact one, by relative norm (the
+#: reference's bar, tests/test_training_ft.py)
+COMPRESS_TOL = 2e-2
+#: (d) the dry-run cell run on the card's host
+MESH_DRYRUN = ("phi4-mini-3.8b", "decode_32k")
+#: how long the one-rank NCCL group may wait on a collective
+MESH_GROUP_TIMEOUT_S = 60
+
+
+class MeshRun(DirectRun):
+    """:class:`DirectRun` of a ``TransformerLM`` through ``prefill`` /
+    ``decode_step``; with a ``mesh``, through their mesh keywords, every
+    input a DTensor placed for it (the parameters by the serving rules,
+    the pool's pages over every axis, the rest batch over the batch
+    axis), each wrapping the tensor it is made from."""
+
+    def __init__(self, ss: ServeSize, model, params, inputs: dict, dev,
+                 torch, mesh=None):
+        super().__init__(ss, model, params, inputs, dev, torch)
+        self.mesh, self.kw, self.pool = mesh, {}, self.kv.pool
+        if mesh is None:
+            return
+        from repro_torch.common.sharding import placements_for
+        from repro_torch.models import attention as attn
+
+        b_axis, combine = attn.plan_decode_sharding(ss.max_batch, mesh)
+        self.kw = dict(mesh=mesh, batch_axis=b_axis, combine_axes=combine)
+        self.bpl = attn.batch_placements(mesh, b_axis)
+        self.pool = self._wrap(self.kv.pool, placements_for(
+            (None, tuple(mesh.mesh_dim_names)), mesh))
+
+    def _wrap(self, t, placements=None):
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.mesh, placements or self.bpl,
+                                  run_check=False)
+
+    def _local(self, t):
+        return t.full_tensor() if self.mesh is not None else t
+
+    def prefill(self) -> list:
+        m, inp, ss = self.model, self.inputs, self.ss
+        tables, _pp = self.kv.batch_tables(self.handles, ss.pps)
+        tc = self.kv.token_coords(self.handles, ss.prompt)
+        self.cur = self._local(m.prefill(
+            self.params, *map(self._wrap, (inp["tokens"], inp["text_lens"])),
+            self.pool, *map(self._wrap, self._dev(tables, *tc)), **self.kw))
+        self.pos = ss.prompt
+        return self.cur.tolist()
+
+    def step(self) -> list:
+        ss, b = self.ss, self.ss.max_batch
+        for h in self.handles:
+            self.kv.extend(h, self.pos + 1)
+        tables, page_pos = self.kv.batch_tables(self.handles, ss.pps)
+        wsh, wsl = self.kv.write_coords(self.handles, [self.pos] * b)
+        seq_lens = self.torch.full((b,), self.pos, dtype=self.torch.int32,
+                                   device=self.dev)
+        self.cur = self._local(self.model.decode_step(
+            self.params, *map(self._wrap, (self.cur, seq_lens)), self.pool,
+            *map(self._wrap, self._dev(tables, page_pos, wsh, wsl)),
+            **self.kw))
+        self.pos += 1
+        return self.cur.tolist()
+
+
+def mesh_serve_run(ss: ServeSize, model, params, inputs, dev, torch, kattn,
+                   mesh=None) -> tuple:
+    """A prefill and ``gen - 1`` steps of :class:`MeshRun`, then a
+    profiled step (``labelled_split``: the paged attention and, over a
+    mesh, its combine's all-reduces). Both kernels must launch once a
+    layer a prefill / step. Returns the readings and the tokens."""
+    from repro_torch.models import attention as attn_mod
+
+    layers = model.cfg.num_layers
+    run = MeshRun(ss, model, params, inputs, dev, torch, mesh)
+    kattn.reset_launches()
+    out = [run.prefill()]
+    check(dict(kattn.LAUNCHES) == {"flash_attention": layers,
+                                   "paged_attention": 0},
+          f"mesh={mesh is not None}: prefill launched {dict(kattn.LAUNCHES)}")
+    step_s = []
+    for _ in range(ss.gen - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out.append(run.step())
+        step_s.append(time.perf_counter() - t)
+    launches = dict(kattn.LAUNCHES)
+    want = {"flash_attention": layers,
+            "paged_attention": layers * (ss.gen - 1)}
+    check(launches == want,
+          f"mesh={mesh is not None}: the run launched {launches}, not {want}")
+
+    def timed_step():
+        t0 = time.perf_counter()
+        run.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    split = labelled_split(
+        [(attn_mod, "all_reduce", "combine"),
+         (attn_mod, "paged_decode_attention", "attention")],
+        timed_step, dev, torch, warmup=run.step)
+    run.close()
+    return ({"step_wall_ms_median": statistics.median(step_s) * 1e3,
+             "profiled_step": split, "launches": launches},
+            [list(r) for r in zip(*out)])
+
+
+def mesh_serve(ss: ServeSize, mesh, dev, torch, np, kattn) -> dict:
+    """(a): ``ss`` without a mesh and then through the mesh keywords on the
+    one-card ``(data=1, model=1)`` mesh, on the same parameters and
+    requests: identical tokens."""
+    from repro_torch.common.sharding import DEFAULT_RULES, tree_shardings
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.registry import build_model
+    from torch.distributed.tensor import DTensor
+
+    cfg = ss.config()
+    model = build_model(cfg, page_size=ss.page)
+    params = model.init_params(ss.seed, device=dev)
+    rng = np.random.default_rng(ss.seed)
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+                  1, cfg.vocab_size - 1, (ss.max_batch, ss.prompt)
+              ).astype(np.int32)).to(dev),
+              "text_lens": torch.full((ss.max_batch,), ss.prompt,
+                                      dtype=torch.int32, device=dev)}
+    plain, plain_tokens = mesh_serve_run(ss, model, params, inputs, dev,
+                                         torch, kattn)
+    rules = dict(DEFAULT_RULES)
+    rules["fsdp"] = ()
+    placements = tree_shardings(model.abstract_params(), model.param_axes(),
+                                mesh, rules)
+    dparams = tree_map(lambda p, pl: DTensor.from_local(
+        p, mesh, pl, run_check=False), params, placements)
+    meshed, mesh_tokens = mesh_serve_run(ss, model, dparams, inputs, dev,
+                                         torch, kattn, mesh)
+    check(mesh_tokens == plain_tokens,
+          "the mesh run's tokens differ from the mesh-less run's")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": ss.arch, "layers": cfg.num_layers,
+            "requests": [ss.max_batch, ss.prompt, ss.gen],
+            "tokens_identical": True, "no_mesh": plain, "mesh": meshed}
+
+
+def mesh_train(mesh, dev, torch) -> dict:
+    """(b): a mesh-less ``Trainer`` of ``TRAIN_PROXY`` checkpoints at
+    ``MESH_SAVE_AT``; a ``Trainer(mesh=...)`` resumes it onto the mesh's
+    placements and its ``MESH_RESUME_STEPS`` losses must be within
+    ``RESUME_TOL`` of the continued run's."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    ts = TRAIN_PROXY
+    cfg = ts.config()
+    with tempfile.TemporaryDirectory() as ck:
+        t1 = new_trainer(ts, cfg, dev, ck)
+        t1.train(MESH_SAVE_AT)
+        t1.save(blocking=True)
+        continued = [h["loss"] for h in t1.train(MESH_RESUME_STEPS)
+                     [-MESH_RESUME_STEPS:]]
+        del t1
+        t2 = new_trainer(ts, cfg, dev, ck, mesh=mesh)
+        check(t2.resume() and t2.step == MESH_SAVE_AT,
+              "the mesh trainer found no checkpoint to resume")
+        check(isinstance(t2.params["layers"]["wq"], DTensor),
+              "the mesh trainer's parameters are not DTensors")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resumed = [h["loss"] for h in t2.train(MESH_RESUME_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    err = max(abs(a - b) for a, b in zip(resumed, continued))
+    check(err < RESUME_TOL, f"the mesh trainer's losses {resumed} differ "
+                            f"from the continued run's {continued} by {err}")
+    del t2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": ts.arch, "save_at": MESH_SAVE_AT, "resumed": resumed,
+            "continued": continued, "max_abs_err": err, "tol": RESUME_TOL,
+            "ms_a_step": wall / MESH_RESUME_STEPS * 1e3}
+
+
+def mesh_compress(dev, torch) -> dict:
+    """(c): ``compressed_psum`` of a seeded 4096 x 4096 gradient over the
+    one-rank group on the card: the mean within ``COMPRESS_TOL`` of the
+    exact one, the residual the quantisation error."""
+    from repro_torch.training.optimizer import (
+        compressed_psum,
+        dequantize_int8,
+        quantize_int8,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    g = {"w": torch.randn((4096, 4096), generator=gen, device=dev)}
+    red, err = compressed_psum(g, None, {"w": torch.zeros_like(g["w"])})
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.vector_norm(red["w"] - g["w"])
+                / torch.linalg.vector_norm(g["w"]))
+    check(rel < COMPRESS_TOL, f"compressed_psum is {rel} from the exact mean")
+    q, scale = quantize_int8(g["w"])
+    resid = float((err["w"] - (g["w"] - dequantize_int8(q, scale))).abs()
+                  .max())
+    check(resid == 0.0 and float(err["w"].abs().max()) > 0,
+          f"compressed_psum's residual is not the quantisation error "
+          f"({resid})")
+    return {"shape": [4096, 4096], "rel_err": rel, "tol": COMPRESS_TOL,
+            "residual_max_abs_err": resid}
+
+
+def mesh_dryrun() -> dict:
+    """(d): ``MESH_DRYRUN`` at production size on rank 0 of a 256-rank
+    fake group (fake CPU tensors on the card's host), its roofline terms
+    on the H100 row."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    arch, shape = MESH_DRYRUN
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, out_dir=out)
+    check(rec["ok"], f"the dry-run of {arch} {shape} failed: "
+                     f"{rec.get('error')}")
+    check(rec["hlo"]["flops_per_device"] > 0, "the dry-run counted no FLOPs")
+    return {"cell": f"{arch}/{shape}/singlepod", "seconds":
+            time.perf_counter() - t, "n_chips": rec["n_chips"],
+            "memory": rec["memory"], "counts": rec["hlo"],
+            "roofline": rec["roofline"]}
+
+
+def mesh_phase(dev, torch, np) -> dict:
+    """Phase 21: the mesh on the card. A one-rank NCCL group and a
+    ``(data=1, model=1)`` ``DeviceMesh`` on ``cuda``: (a) serving through
+    the mesh keywords, (b) the trainer's elastic restart onto the mesh,
+    (c) ``compressed_psum``; the group is destroyed, then (d) the dry-run
+    cell on the fake group. NCCL must start: there is no other backend
+    and no mesh-less path to fall back on."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import make_mesh
+    from repro_torch.kernels import attention as kattn
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    try:
+        check(dist.get_backend() == "nccl", "the mesh's group is not NCCL")
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        entry = {"card": card_line(torch), "backend": dist.get_backend(),
+                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        t = time.perf_counter()
+        entry["serve"] = mesh_serve(MESH_SERVE, mesh, dev, torch, np, kattn)
+        entry["serve"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        entry["train"] = mesh_train(mesh, dev, torch)
+        entry["train"]["seconds"] = time.perf_counter() - t
+        entry["compressed_psum"] = mesh_compress(dev, torch)
+    finally:
+        dist.destroy_process_group()
+    entry["dryrun"] = mesh_dryrun()
+    check(not dist.is_initialized(), "a process group outlived phase 21")
+    emit({"phase": "mesh", **entry})
+    return entry
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SmokeError("src/repro_torch not found next to chip_smoke.py: "
@@ -4711,6 +5020,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("train", train_phase, dev, torch, np)
+    timed("mesh", mesh_phase, dev, torch, np)
     emit({"phase_seconds": phase_s})
 
     print(card_line(torch), flush=True)

@@ -16,9 +16,13 @@ a crash mid-save never corrupts the latest checkpoint, and a stray
 :meth:`Checkpointer.save` returns, and written on a background thread;
 :meth:`Checkpointer.wait` joins it. The three newest checkpoints are kept.
 
-:meth:`Checkpointer.restore` puts each leaf on the device it is given;
-restoring onto a mesh's shardings waits for a device mesh (``ROADMAP.md``,
-queue 1, item 5).
+:meth:`Checkpointer.restore` puts each leaf on the device it is given,
+or, with ``shardings`` (a tree of DTensor placements, the port's
+``tree_shardings``) and a ``mesh``, distributes it onto that mesh
+(``distribute_tensor``): the elastic restart onto another mesh. The file
+layout does not depend on the mesh. A DTensor leaf is gathered whole
+before it is written (a collective: every rank calls ``save``), and only
+rank 0 of the default process group writes.
 """
 from __future__ import annotations
 
@@ -65,8 +69,12 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that later in-place updates of the tensor
-    cannot touch."""
+    """A host copy of ``leaf`` (a DTensor gathered whole) that later
+    in-place updates of the tensor cannot touch."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf)
@@ -84,6 +92,8 @@ class Checkpointer:
              blocking: bool = False) -> None:
         self.wait()
         flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        if _rank() != 0:
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
@@ -134,16 +144,38 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, *, device="cpu"):
+    def restore(self, step: int, like, shardings=None, *, mesh=None,
+                device="cpu"):
         """Returns ``(tree, extra)``: ``like``'s structure (nested dicts and
         ``NamedTuple``s; its leaves are not read) with every leaf loaded as
-        a tensor on ``device``."""
+        a tensor on ``device``. ``shardings`` (optional, ``like``'s
+        structure, a leaf's DTensor placements or ``None``) re-shards for
+        ``mesh``: a leaf with placements becomes a DTensor on ``mesh``
+        (on the mesh's device type)."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        placements = _flatten(shardings) if shardings is not None else {}
+        if placements and mesh is None:
+            raise ValueError("restore: shardings need the mesh they are for")
         loaded = {}
         for key in _flatten(like):
             info = meta["leaves"][key]
-            arr = np.load(os.path.join(path, info["file"]))
-            loaded[key] = torch.from_numpy(arr).to(device)
+            arr = torch.from_numpy(np.load(os.path.join(path, info["file"])))
+            pl = placements.get(key)
+            if pl is None:
+                loaded[key] = arr.to(device)
+                continue
+            from torch.distributed.tensor import distribute_tensor
+
+            loaded[key] = distribute_tensor(arr.to(mesh.device_type), mesh,
+                                            pl)
         return _unflatten(like, loaded), meta["extra"]
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0

@@ -1,7 +1,9 @@
 """Core configuration types shared across the framework.
 
 Every architecture (dense / MoE / SSM / hybrid / enc-dec / VLM backbone) is
-described by a single ``ModelConfig``.
+described by a single ``ModelConfig``; the evaluation grid's input shapes
+(``ShapeSpec``), logical meshes (``MeshSpec``) and cells (``RunShape``)
+are plain Python, copied from the JAX package's.
 """
 from __future__ import annotations
 
@@ -110,3 +112,63 @@ class ModelConfig:
         from repro_torch.models.registry import count_params_from_config
 
         return count_params_from_config(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape point from the assignment."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_serve(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical device-mesh description (axis names × sizes)."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.axes:
+            return 1
+        return self.shape[self.axes.index(name)]
+
+
+SINGLE_POD = MeshSpec((16, 16), ("data", "model"))
+MULTI_POD = MeshSpec((2, 16, 16), ("pod", "data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class RunShape:
+    """A fully-resolved (arch, shape, mesh) cell of the evaluation grid."""
+
+    arch: str
+    shape: ShapeSpec
+    mesh: MeshSpec
+
+    @property
+    def cell(self) -> str:
+        pod = "multipod" if "pod" in self.mesh.axes else "singlepod"
+        return f"{self.arch}/{self.shape.name}/{pod}"

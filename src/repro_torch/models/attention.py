@@ -1,11 +1,22 @@
-"""Attention paths of serving and training, on one device.
+"""Attention paths of serving and training.
 
-PyTorch twins of the JAX package's ``repro.models.attention``, with no mesh
-and no ``shard_map``: one device plays shard ``SHARD`` (0) of the
-flash-decode layout, as the JAX package's one-device mesh does, so the
-combine across chips reduces to ``acc / max(l, 1e-30)``. With the engine's
-one-shard stack that device owns every page; under a stack of more shards
-the pages of the others are neither written nor read, as in JAX.
+PyTorch twins of the JAX package's ``repro.models.attention``. Without a
+mesh one device plays shard ``SHARD`` (0) of the flash-decode layout, as
+the JAX package's one-device mesh does, so the combine across devices
+reduces to ``acc / max(l, 1e-30)``. With the engine's one-shard stack that
+device owns every page; under a stack of more shards the pages of the
+others are neither written nor read, as in JAX.
+
+With a ``mesh`` (a ``DeviceMesh``; :func:`plan_decode_sharding` picks the
+batch axis and the combine axes) each rank is shard
+:func:`combined_axis_index` of the combine axes: it writes and reads only
+the pages its shard of the pool holds, ``ops.paged_attention`` gives its
+partial ``(acc, m, l)``, and the partials are combined by an all-reduce of
+``m`` (max) and then of ``l * exp(m - m_max)`` and ``acc * exp(m - m_max)``
+(sum) over the combine axes: flash-decode, the reference's ``shard_map``
+body. The inputs are either DTensors (sharded as the reference's
+``in_specs``: batch over the batch axis, pages over every axis), which the
+region unwraps with ``local_map``, or already this rank's local shards.
 
 * ``dense_attention`` — the plain reference path the tests hold the
   kernels against, and training's attention up to 1024 positions.
@@ -28,27 +39,34 @@ the pages of the others are neither written nor read, as in JAX.
   ``ops.paged_attention``.
 * ``prefill_write_pages`` — anchor a prompt's K/V into its pages.
 
-The K/V writes stay plain PyTorch (a masked ``index_put_``, the
-counterpart of ``.at[].set(mode="drop")``), as the JAX package does them
-outside any kernel. The pool is updated in place; JAX donates it instead.
+The K/V writes stay plain PyTorch (one ``index_put_`` of fixed shape,
+:class:`WriteIndex`, the counterpart of ``.at[].set(mode="drop")``), as
+the JAX package does them outside any kernel. The pool is updated in place; JAX donates it instead.
 Every placement arrives as int32 metadata from the control plane
 (the Libra mechanism / policy split).
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.common.sharding import (
+    all_reduce,
+    axis_index,
+    contiguous_grad,
+    is_distributed,
+    mesh_axis_names,
+    mesh_axis_sizes,
+    placements_for,
+)
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 #: the shard of the block tables whose pages this device holds
 SHARD = 0
 
-#: (batch rows, page ids, in-page offsets) of the K/V a write lands on
-WriteIndex = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _gqa_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -82,7 +100,14 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Reference attention. q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd]. The scores
     and the softmax are float32; the probabilities are cast to ``v``'s
     dtype for the second product, as in the reference. Nothing is written
-    in place, so autograd differentiates it."""
+    in place, so autograd differentiates it. DTensor inputs run per rank
+    on their local batch and heads (:func:`head_parallel`)."""
+    if is_distributed(q):
+        rows = (pos_q, pos_kv) + ((kv_valid,) if kv_valid is not None else ())
+        return head_parallel(
+            lambda a, b, c, pq, pk, *kvv: dense_attention(
+                a, b, c, pq, pk, causal=causal, window=window,
+                kv_valid=kvv[0] if kvv else None), q, k, v, *rows)
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -103,7 +128,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q [B,S,Hq,hd], k/v [B,S,Hkv,hd] -> [B,S,Hq,hd], through
     ``ops.flash_attention`` on the ``[B, H, S, hd]`` layout. ``window > 0``
     keeps only keys with ``iq - ik < window`` (the reference's sliding
-    window); 0 is global attention."""
+    window); 0 is global attention. DTensor inputs run per rank on their
+    local batch and heads (:func:`head_parallel`)."""
+    if is_distributed(q):
+        return head_parallel(lambda a, b, c: prefill_attention(
+            a, b, c, window=window, impl=impl), q, k, v)
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(),
@@ -290,7 +319,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:class:`_Blockwise`). Q and K/V are padded to whole chunks, the keys
     with zero rows at position ``2**30``, as in the reference; a
     non-causal call keeps those keys (F5, :func:`blockwise_kv_pad`).
-    ``window`` is a Python int (the tile list is fixed per call)."""
+    ``window`` is a Python int (the tile list is fixed per call). DTensor
+    inputs run per rank on their local batch and heads
+    (:func:`head_parallel`)."""
+    if is_distributed(q):
+        return head_parallel(
+            lambda a, b, c, pq, pk: blockwise_attention(
+                a, b, c, pq, pk, causal=causal, window=window,
+                q_chunk=q_chunk, kv_chunk=kv_chunk), q, k, v, pos_q, pos_kv)
     return _Blockwise.apply(q, k, v, pos_q, pos_kv, causal, int(window),
                             q_chunk, kv_chunk)
 
@@ -317,7 +353,11 @@ def noncausal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, H, S, hd]`` layout, where the JAX package takes
     ``dense_attention`` / ``blockwise_attention``. The keys are first
     padded with :func:`blockwise_kv_pad`'s zero rows, so that the function
-    is the JAX package's on either of its branches."""
+    is the JAX package's on either of its branches. DTensor inputs run
+    per rank on their local batch and heads (:func:`head_parallel`)."""
+    if is_distributed(q):
+        return head_parallel(lambda a, b, c: noncausal_attention(
+            a, b, c, impl=impl), q, k, v)
     pad = blockwise_kv_pad(q.shape[1], k.shape[1])
     k, v = (torch.nn.functional.pad(t.transpose(1, 2), (0, 0, 0, pad))
             .contiguous() for t in (k, v))
@@ -326,22 +366,84 @@ def noncausal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+class WriteIndex(NamedTuple):
+    """Where the rows of a K/V write land, in fixed shapes (no host sync):
+    for every ``i``, row ``src[i]`` of the K/V goes to slot
+    ``(pid[i], off[i])`` of the pool; nothing is written when ``kept`` is
+    false. Made by :func:`_write_index`, applied by :func:`write_rows`."""
+    src: torch.Tensor   # [N] int64
+    pid: torch.Tensor   # [N] int64
+    off: torch.Tensor   # [N] int64
+    kept: torch.Tensor  # [] bool: some row is written
+
+
+def _write_index(ok: torch.Tensor, pid: torch.Tensor,
+                 off: torch.Tensor) -> WriteIndex:
+    """Rows ``ok`` keeps go to ``(pid, off)``; the JAX package drops the
+    others (``.at[].set(mode="drop")``), which has no fixed-shape
+    counterpart in PyTorch. Here a dropped row writes the first kept row's
+    value into that row's slot once more, so that every slot written
+    receives a single value; when no row is kept, every row goes to slot
+    ``(0, 0)`` and :func:`write_rows` writes back what that slot holds."""
+    kept = ok.any()
+    first = ok.to(torch.int32).argmax()            # 0 when no row is kept
+    src = torch.where(ok, torch.arange(ok.shape[0], device=ok.device), first)
+    zero = torch.zeros((), dtype=torch.long, device=ok.device)
+    return WriteIndex(src, torch.where(kept, pid.long()[src], zero),
+                      torch.where(kept, off.long()[src], zero), kept)
+
+
+def write_rows(pool: torch.Tensor, index: WriteIndex,
+               kv: torch.Tensor) -> None:
+    """``pool[pid[i], off[i]] = kv[src[i]]`` in place, for every ``i`` of
+    ``index`` (:class:`WriteIndex`): one static ``index_put_``."""
+    vals = kv[index.src].to(pool.dtype)
+    pool.index_put_((index.pid, index.off),
+                    torch.where(index.kept, vals, pool[0, 0]))
+
+
+def _local_rows(mesh, batch_axis, *ts) -> tuple:
+    """``ts`` as this rank's rows: a DTensor placed batch over
+    ``batch_axis`` (as the mesh regions take it) and taken local; a plain
+    tensor, or any tensor without a mesh, unchanged."""
+    if mesh is None:
+        return ts
+    bpl = batch_placements(mesh, batch_axis)
+    return tuple(t.redistribute(mesh, bpl).to_local() if is_distributed(t)
+                 else t for t in ts)
+
+
+def _own_shard(mesh, combine_axes: Sequence[str]) -> int:
+    """The shard of the block tables whose pages this device holds:
+    :data:`SHARD` without a mesh, else this rank's index among
+    ``combine_axes`` (:func:`combined_axis_index`)."""
+    if mesh is None:
+        return SHARD
+    return combined_axis_index(mesh, tuple(combine_axes))
+
+
 def decode_write_index(block_tables: torch.Tensor, page_pos: torch.Tensor,
                        seq_lens: torch.Tensor, write_shard: torch.Tensor,
-                       write_slot: torch.Tensor, page_size: int) -> WriteIndex:
+                       write_slot: torch.Tensor, page_size: int, *,
+                       mesh=None, batch_axis=None,
+                       combine_axes: Sequence[str] = ()) -> WriteIndex:
     """Where each incoming decode token's K/V lands: the rows whose write
-    page is on ``SHARD``, exists and covers ``seq_lens``; the JAX package
-    drops the others (``mode="drop"``). The same for every layer of a
-    step, so a step computes it once."""
+    page is on this device's shard (:func:`_own_shard`), exists and covers
+    ``seq_lens``; the JAX package drops the others (``mode="drop"``). With
+    a ``mesh``, over this rank's rows of the batch. The same for every
+    layer of a step, so a step computes it once."""
+    block_tables, page_pos, seq_lens, write_shard, write_slot = _local_rows(
+        mesh, batch_axis, block_tables, page_pos, seq_lens, write_shard,
+        write_slot)
     b = seq_lens.shape[0]
     rows = torch.arange(b, device=seq_lens.device)
     slot = write_slot.long()[:, None]
     pid = block_tables[rows, write_shard.long()].gather(1, slot)[:, 0]
     base = page_pos[rows, write_shard.long()].gather(1, slot)[:, 0]
     off = seq_lens - base
-    ok = (write_shard == SHARD) & (pid >= 0) & (off >= 0) & (off < page_size)
-    keep = ok.nonzero().squeeze(1)
-    return keep, pid[keep].long(), off[keep].long()
+    ok = ((write_shard == _own_shard(mesh, combine_axes)) & (pid >= 0)
+          & (off >= 0) & (off < page_size))
+    return _write_index(ok, pid, off)
 
 
 def paged_decode_attention(
@@ -358,39 +460,75 @@ def paged_decode_attention(
     window: int = 0,
     impl: str = "auto",
     write_index: Optional[WriteIndex] = None,
+    mesh=None,
+    batch_axis=None,
+    combine_axes: Sequence[str] = (),
 ) -> torch.Tensor:
     """Write the new token's KV into its anchored page (in place), then
     attend over all anchored pages. Returns attn_out [B, Hq, hd].
     ``window > 0`` keeps only keys with ``seq_lens - pos < window`` (the
     reference's sliding window); 0 is global attention. ``write_index`` is
-    :func:`decode_write_index` of these arguments, computed here when not
-    given."""
+    :func:`decode_write_index` of these arguments (and mesh keywords),
+    computed here when not given.
+
+    With a ``mesh`` this rank holds shard :func:`combined_axis_index` of
+    ``combine_axes`` of the pool's pages; the partial softmax of every
+    shard is combined across them (flash-decode; see the module's
+    docstring)."""
+    combine_axes = tuple(combine_axes)
     if write_index is None:
-        write_index = decode_write_index(block_tables, page_pos, seq_lens,
-                                         write_shard, write_slot,
-                                         pool.shape[1])
-    rows, pid, off = write_index
-    kv = torch.stack([k_new, v_new], dim=1).to(pool.dtype)  # [B, 2, Hkv, hd]
-    pool.index_put_((pid, off), kv[rows])
-    acc, _m, l = ops.paged_attention(
-        q.contiguous(), pool, block_tables[:, SHARD].contiguous(),
-        page_pos[:, SHARD].contiguous(), seq_lens, window=window, impl=impl)
-    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+        write_index = decode_write_index(
+            block_tables, page_pos, seq_lens, write_shard, write_slot,
+            pool.shape[1], mesh=mesh, batch_axis=batch_axis,
+            combine_axes=combine_axes)
+
+    def local(q, k_new, v_new, pool, tables, page_pos, seq_lens):
+        shard = _own_shard(mesh, combine_axes)
+        write_rows(pool, write_index, torch.stack([k_new, v_new], dim=1))
+        acc, m, l = ops.paged_attention(
+            q.contiguous(), pool, tables[:, shard].contiguous(),
+            page_pos[:, shard].contiguous(), seq_lens, window=window,
+            impl=impl)
+        if combine_axes:
+            m_g = all_reduce(m, "max", mesh, combine_axes)
+            scale = torch.exp(m - m_g)
+            l = all_reduce(l * scale, "sum", mesh, combine_axes)
+            acc = all_reduce(acc * scale[..., None], "sum", mesh,
+                             combine_axes)
+        return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+    args = (q, k_new, v_new, pool, block_tables, page_pos, seq_lens)
+    if not is_distributed(pool):
+        return local(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    bpl = batch_placements(mesh, batch_axis)
+    return local_map(local, out_placements=list(bpl),
+                     in_placements=(bpl, bpl, bpl, pool_placements(mesh))
+                     + (bpl,) * 3,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def prefill_write_index(block_tables: torch.Tensor, token_shard: torch.Tensor,
                         token_slot: torch.Tensor, token_off: torch.Tensor,
-                        token_valid: torch.Tensor) -> WriteIndex:
+                        token_valid: torch.Tensor, *, mesh=None,
+                        batch_axis=None, combine_axes: Sequence[str] = ()
+                        ) -> WriteIndex:
     """Where each prompt token's K/V lands, as flat ``b * S + s`` token
-    rows: the valid tokens whose page is on ``SHARD`` and exists."""
+    rows: the valid tokens whose page is on this device's shard
+    (:func:`_own_shard`) and exists. With a ``mesh``, over this rank's
+    rows of the batch."""
+    block_tables, token_shard, token_slot, token_off, token_valid = \
+        _local_rows(mesh, batch_axis, block_tables, token_shard, token_slot,
+                    token_off, token_valid)
     b, s = token_shard.shape
     rows = torch.arange(b, device=token_shard.device)[:, None]
     pid = block_tables[rows, token_shard.long()].gather(
         2, token_slot.long()[..., None])[..., 0]              # [B, S]
-    ok = (token_shard == SHARD) & token_valid & (pid >= 0)
-    keep = ok.reshape(-1).nonzero().squeeze(1)
-    return keep, pid.reshape(-1)[keep].long(), \
-        token_off.reshape(-1)[keep].long()
+    ok = ((token_shard == _own_shard(mesh, combine_axes)) & token_valid
+          & (pid >= 0))
+    return _write_index(ok.reshape(-1), pid.reshape(-1),
+                        token_off.reshape(-1))
 
 
 def prefill_write_pages(
@@ -404,15 +542,137 @@ def prefill_write_pages(
     token_valid: torch.Tensor,   # [B, S] bool
     *,
     write_index: Optional[WriteIndex] = None,
+    mesh=None,
+    batch_axis=None,
+    combine_axes: Sequence[str] = (),
 ) -> torch.Tensor:
     """Anchor a full prompt's KV into its pages (ingress path), in place.
-    ``write_index`` is :func:`prefill_write_index` of these arguments,
-    computed here when not given. Returns ``pool``."""
+    ``write_index`` is :func:`prefill_write_index` of these arguments (and
+    mesh keywords), computed here when not given. Returns ``pool``. With a
+    ``mesh`` each rank writes only the pages of its shard (shard
+    :func:`combined_axis_index` of ``combine_axes``): no payload crosses
+    devices."""
     if write_index is None:
-        write_index = prefill_write_index(block_tables, token_shard,
-                                          token_slot, token_off, token_valid)
-    rows, pid, off = write_index
-    b, s, hkv, hd = k.shape
-    kv = torch.stack([k, v], dim=2).to(pool.dtype).reshape(b * s, 2, hkv, hd)
-    pool.index_put_((pid, off), kv[rows])
-    return pool
+        write_index = prefill_write_index(
+            block_tables, token_shard, token_slot, token_off, token_valid,
+            mesh=mesh, batch_axis=batch_axis, combine_axes=combine_axes)
+
+    def local(k, v, pool):
+        b, s, hkv, hd = k.shape
+        write_rows(pool, write_index,
+                   torch.stack([k, v], dim=2).reshape(b * s, 2, hkv, hd))
+        return pool
+
+    if not is_distributed(pool):
+        return local(k, v, pool)
+    from torch.distributed.tensor.experimental import local_map
+
+    bpl = batch_placements(mesh, batch_axis)
+    ppl = pool_placements(mesh)
+    return local_map(local, out_placements=list(ppl),
+                     in_placements=(bpl, bpl, ppl), device_mesh=mesh,
+                     redistribute_inputs=True)(k, v, pool)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: decode sharding plan, shard indices, head-parallel regions
+# ---------------------------------------------------------------------------
+
+def plan_decode_sharding(global_batch: int, mesh
+                         ) -> Tuple[Optional[object], Tuple[str, ...]]:
+    """Decide batch sharding axis + softmax combine axes for decode.
+
+    Requests are sharded over the data axes when divisible; each request's
+    pages stripe over the remaining (combine) axes and partial softmax
+    stats are all-reduced — flash-decode. Tiny batches (long_500k)
+    replicate the batch and stripe pages over every axis.
+    """
+    sizes = mesh_axis_sizes(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    dsize = math.prod([sizes[a] for a in data_axes]) if data_axes else 1
+    if data_axes and global_batch % dsize == 0:
+        return (data_axes if len(data_axes) > 1 else data_axes[0],
+                ("model",) if "model" in sizes else ())
+    return None, tuple(mesh_axis_names(mesh))
+
+
+def num_combine_shards(mesh, combine_axes: Tuple[str, ...]) -> int:
+    sizes = mesh_axis_sizes(mesh)
+    return math.prod([sizes[a] for a in combine_axes]) if combine_axes else 1
+
+
+def combined_axis_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's shard among ``axes`` taken together, the first axis
+    major (the reference's ``_combined_axis_index``)."""
+    sizes = mesh_axis_sizes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + axis_index(mesh, a)
+    return idx
+
+
+def batch_placements(mesh, batch_axis) -> tuple:
+    """Placements of a tensor whose dim 0 is the batch, sharded over
+    ``batch_axis`` (``None``, an axis or a tuple of axes) and replicated
+    over the rest (the reference's ``P(batch_axis)``)."""
+    return placements_for((batch_axis,), mesh)
+
+
+def pool_placements(mesh) -> tuple:
+    """Placements of one layer's pool ``[P, ...]``: pages over every axis
+    (the reference's ``P(tuple(mesh.axis_names))``)."""
+    return placements_for((tuple(mesh_axis_names(mesh)),), mesh)
+
+
+def head_parallel(fn, q, k, v, *rows):
+    """``fn(q, k, v, *rows)`` on each rank's local shards of DTensors q
+    ``[B, Sq, Hq, hd]``, k/v ``[B, Skv, Hkv, hd]``: batch as q's dim 0 is
+    sharded, heads over the axes q's dim 2 is sharded on (the
+    ``act_heads`` constraint; a ``shard_map`` over batch and heads in the
+    reference's terms). When ``Hkv`` does not divide among those ranks,
+    k/v are gathered whole and each rank takes the KV heads its query
+    heads read (their gradient is then partial over those axes).
+    ``rows`` are per-batch-row tensors (positions), sharded like q's batch
+    (a plain tensor is sliced to this rank's rows). Returns a DTensor
+    placed as q."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qpl = tuple(q.placements)
+    if not all(p in (Shard(0), Shard(2), Replicate()) for p in qpl):
+        raise ValueError(f"head_parallel: q placed {qpl}")
+    names = mesh_axis_names(mesh)
+    head_axes = tuple(a for a, p in zip(names, qpl) if p == Shard(2))
+    batch_axes = tuple(a for a, p in zip(names, qpl) if p == Shard(0))
+    n = num_combine_shards(mesh, head_axes)
+    hq, hkv = q.shape[2], k.shape[2]
+    kv_split = hkv % n == 0
+    kvpl = qpl if kv_split else tuple(
+        Replicate() if p == Shard(2) else p for p in qpl)
+    kv_grad = kvpl if kv_split else tuple(
+        Partial() if p == Shard(2) else p for p in qpl)
+    rowpl = tuple(p if p == Shard(0) else Replicate() for p in qpl)
+    nb = num_combine_shards(mesh, batch_axes)
+    b0 = combined_axis_index(mesh, batch_axes) * (q.shape[0] // nb)
+    rows = tuple(r if isinstance(r, DTensor) or not batch_axes
+                 else r[b0:b0 + q.shape[0] // nb] for r in rows)
+
+    def local(ql, kl, vl, *rl):
+        ql, kl, vl = (contiguous_grad(t) for t in (ql, kl, vl))
+        if head_axes and not kv_split:
+            g = hq // hkv
+            h0 = combined_axis_index(mesh, head_axes) * (hq // n)
+            kvh = (h0 + torch.arange(hq // n, device=kl.device)) // g
+            kl, vl = kl[:, :, kvh], vl[:, :, kvh]
+        return fn(ql, kl, vl, *rl)
+
+    dist_rows = tuple(isinstance(r, DTensor) for r in rows)
+    # a single output's placements go as a list (a tuple lists outputs)
+    return local_map(
+        local, out_placements=list(qpl),
+        in_placements=(qpl, kvpl, kvpl) + tuple(
+            rowpl if d else None for d in dist_rows),
+        in_grad_placements=(qpl, kv_grad, kv_grad) + tuple(
+            rowpl if d else None for d in dist_rows),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, *rows)

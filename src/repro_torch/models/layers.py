@@ -5,7 +5,9 @@ training pieces every model shares (:func:`remat_call`,
 
 PyTorch twins of the JAX package's ``repro.models.layers``. A ``ParamSpec``
 template is the single source of truth per architecture: ``init_params``
-(real tensors) and ``count_template_params`` are both derived from it.
+(real tensors), ``abstract_params`` (meta tensors, the dry-run's),
+``param_axes`` (logical sharding names) and ``count_template_params`` are
+all derived from it, so they cannot diverge.
 Parameters are nested dicts of tensors with the JAX package's keys and
 shapes, so a JAX parameter tree carries across leaf for leaf
 (:func:`repro_torch.models.convert.params_from_jax`).
@@ -24,6 +26,8 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from repro_torch.common.sharding import is_distributed
 
 Params = Any  # nested dict of tensors
 
@@ -99,6 +103,38 @@ def init_params(generator: torch.Generator, template: Template, *,
         return torch.randn(spec.shape, generator=generator,
                            dtype=torch.float32, device=device).mul_(std)
     return tree_map(make, template)
+
+
+def abstract_params(template: Template, dtype=torch.float32) -> Params:
+    """Meta-device tensors of the template's shapes in ``dtype``: the
+    counterpart of JAX's ``ShapeDtypeStruct`` tree (the dry-run's
+    parameters; nothing is allocated)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), template)
+
+
+def param_axes(template: Template) -> Params:
+    """The logical sharding names of every parameter, leaf for leaf."""
+    return tree_map(lambda s: s.axes, template)
+
+
+def split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``x [..., heads * head_dim] -> [..., heads, head_dim]``. A DTensor
+    whose last dim is sharded over more ranks than split ``heads`` into
+    whole heads is gathered along it first (GSPMD reshards such a reshape
+    by itself; DTensor refuses it)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(x, DTensor):
+        last = x.dim() - 1
+        sizes = x.device_mesh.shape
+        n = math.prod(sz for sz, pl in zip(sizes, x.placements)
+                      if isinstance(pl, Shard) and pl.dim in (last, -1))
+        if n > 1 and heads % n:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if isinstance(pl, Shard) and pl.dim in (last, -1)
+                else pl for pl in x.placements])
+    return x.reshape(*x.shape[:-1], heads, head_dim)
 
 
 def count_template_params(template: Template) -> int:
@@ -236,7 +272,8 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single decode step of the causal conv. conv_state [B, K-1, C]."""
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # [B, K, C]
-    out = torch.einsum("bkc,kc->bc", window, w)
+    dt = torch.promote_types(window.dtype, w.dtype)   # as jnp.einsum does
+    out = torch.einsum("bkc,kc->bc", window.to(dt), w.to(dt))
     if b is not None:
         out = out + b
     return out, window[:, 1:, :]
@@ -284,8 +321,122 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor):
     that are not negative. Returns ``(loss, lse [B, S], mask [B, S],
     ntok)``, the pieces the models' ``loss_fn`` combine."""
     mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if is_distributed(logits):
+        lse, gold = _lse_gold_sharded(logits, labels)
+    else:
+        lse, gold = _lse_gold(logits, labels)
     ntok = mask.sum().clamp(min=1.0)
     loss = ((lse - gold) * mask).sum() / ntok
     return loss, lse, mask, ntok
+
+
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """Each row's log-sum-exp and its label's logit (label < 0: the first
+    logit, masked out later)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return lse, gold
+
+
+def _lse_gold_sharded(logits, labels):
+    """:func:`_lse_gold` of DTensor logits whose vocab may be sharded
+    (``"vocab"`` over ``model``): each rank reduces its slice of the
+    vocabulary and the maxima and sums are all-reduced over the vocab
+    axes, the vocab-parallel cross-entropy GSPMD derives from the
+    reference's ``logsumexp`` / ``take_along_axis``. Rows stay sharded as
+    the logits' batch is."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.common.sharding import (
+        all_reduce,
+        axis_index,
+        contiguous_grad,
+        mesh_axis_names,
+        mesh_axis_sizes,
+        psum_identity_grad,
+    )
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    names = mesh_axis_names(mesh)
+    lpl = tuple(p if isinstance(p, Shard) and p.dim in (0, last, -1)
+                else Replicate() for p in logits.placements)
+    vocab_axes = tuple(a for a, p in zip(names, lpl)
+                       if isinstance(p, Shard) and p.dim in (last, -1))
+    rowpl = tuple(p if p == Shard(0) else Replicate() for p in lpl)
+    sizes = mesh_axis_sizes(mesh)
+
+    def local(lg, lb):
+        lg = contiguous_grad(lg)
+        if math.prod(sizes[a] for a in vocab_axes) == 1:
+            return _lse_gold(lg, lb)      # the vocabulary is whole here
+        vl = lg.shape[-1]
+        r = 0
+        for a in vocab_axes:
+            r = r * sizes[a] + axis_index(mesh, a)
+        m = all_reduce(lg.detach().amax(dim=-1), "max", mesh, vocab_axes)
+        se = psum_identity_grad(torch.exp(lg - m[..., None]).sum(dim=-1),
+                                mesh, vocab_axes)
+        lse = m + torch.log(se)
+        idx = lb.long().clamp(min=0) - r * vl
+        mine = (idx >= 0) & (idx < vl)
+        g = lg.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = psum_identity_grad(torch.where(mine, g, torch.zeros_like(g)),
+                                  mesh, vocab_axes)
+        return lse, gold
+
+    return local_map(local, out_placements=(list(rowpl), list(rowpl)),
+                     in_placements=(lpl, rowpl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                  labels)
+
+
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``x.argmax(dim=-1)``; a DTensor sharded along its last dim (the
+    vocabulary) is gathered along it first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if is_distributed(x):
+        last = x.dim() - 1
+        pl = [Replicate() if isinstance(p, Shard) and p.dim in (last, -1)
+              else p for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.argmax(dim=-1)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``. From a DTensor table sharded over
+    its rows (the vocabulary) the rows come back partial (a masked sum);
+    they are reduced here, where the lookup's mask is still at hand."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    x = F.embedding(tokens.long(), table)
+    if is_distributed(x) and any(isinstance(p, Partial)
+                                 for p in x.placements):
+        x = _ReplicatedGrad.apply(x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements]))
+    return x
+
+
+class _ReplicatedGrad(torch.autograd.Function):
+    """Identity whose backward reduces a partial DTensor gradient to a
+    replicated one: the masked lookup's redistribution takes its gradient
+    back only from a replicated one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+
+        if is_distributed(g) and any(isinstance(p, Partial)
+                                  for p in g.placements):
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if isinstance(p, Partial) else p
+                for p in g.placements])
+        return g

@@ -17,11 +17,19 @@ The reference scatter-adds (``.at[token_idx].add``) in expert order; the
 combine here adds a token's ``k`` terms in choice order, so the two
 differ by float rounding when ``k > 2``.
 
-The reference's expert-parallel path (``shard_map`` over a ``'model'``
-mesh axis, ``repro/models/moe.py`` l.148-207) needs a device mesh, which
-the port does not have yet (``ROADMAP.md``, queue 1, item 5);
-``_dispatch_compute_combine`` already takes the expert range that path
-hands each device.
+Under a mesh with a ``model`` axis of more than one rank that divides
+``padded_experts`` (``common.sharding.use_mesh``), ``moe_ffn`` takes the
+reference's expert-parallel path (its ``shard_map``, a ``local_map``
+region here; ``repro/models/moe.py`` l.148-207): the FSDP shards of the
+expert weights are all-gathered over ``data``, each ``model`` rank
+dispatches the local tokens to its own ``padded_experts / model`` experts
+(``e_first = model rank * e_local``; no token crosses devices), folds in
+its slice of the shared expert, and one all-reduce over ``model`` in the
+activations' dtype sums the partial outputs. The gradients follow
+``shard_map``'s transpose: the all-reduce passes its gradient through
+unchanged, the weight gather's backward is a reduce-scatter, and an
+input replicated over an axis that computes differently on each rank
+gets a partial gradient over it (``in_grad_placements``).
 """
 from __future__ import annotations
 
@@ -31,6 +39,17 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.sharding import (
+    _current_mesh,
+    all_gather,
+    contiguous_grad,
+    axis_index,
+    is_distributed,
+    mesh_axis_names,
+    mesh_axis_sizes,
+    placements_for,
+    psum_identity_grad,
+)
 from repro_torch.common.types import ModelConfig
 from repro_torch.models.layers import ParamSpec
 
@@ -177,9 +196,18 @@ def _shared_expert(p, x: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             capacity_factor: float = 1.25, return_aux: bool = False):
-    """x [T, D] -> [T, D] (and the auxiliary loss with ``return_aux``):
-    the reference's one-device path, every expert local. The serving
-    paths pass ``capacity_factor=2.0``; 1.25 is training's."""
+    """x [T, D] -> [T, D] (and the auxiliary loss with ``return_aux``).
+    Without a mesh that shards the experts, the reference's one-device
+    path, every expert local; with one, the expert-parallel path (the
+    module's docstring). The serving paths pass ``capacity_factor=2.0``;
+    1.25 is training's."""
+    mesh = _current_mesh()
+    e = cfg.padded_experts
+    if mesh is not None:
+        m_size = mesh_axis_sizes(mesh).get("model", 1)
+        if m_size > 1 and e % m_size == 0:
+            out, aux = _moe_ffn_ep(p, x, cfg, mesh, capacity_factor)
+            return (out, aux) if return_aux else out
     logits = x @ p["router"]
     gates, ids = router_topk(logits, cfg)
     out = _dispatch_compute_combine(x, p["w_gate"], p["w_up"], p["w_down"],
@@ -190,3 +218,81 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     if return_aux:
         return out, aux_load_balance_loss(logits, ids, cfg)
     return out
+
+
+def _moe_ffn_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh,
+                capacity_factor: float):
+    """The expert-parallel ``moe_ffn`` over ``mesh``: ``(out, aux)``.
+    DTensor inputs are placed as the reference's ``in_specs`` and unwrapped
+    by ``local_map``; plain tensors are taken to be this rank's shards
+    already."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    sizes = mesh_axis_sizes(mesh)
+    names = mesh_axis_names(mesh)
+    e_local = cfg.padded_experts // sizes["model"]
+    data = "data" if "data" in sizes else None
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    shared = bool(cfg.num_shared_experts)
+
+    def body(x, router, wg, wu, wd, *sh):
+        x, router, wg, wu, wd = (contiguous_grad(t)
+                                 for t in (x, router, wg, wu, wd))
+        sh = tuple(contiguous_grad(t) for t in sh)
+        if data:
+            wg = all_gather(wg, 1, mesh, data)
+            wu = all_gather(wu, 1, mesh, data)
+            wd = all_gather(wd, 2, mesh, data)
+        logits = x @ router
+        gates, ids = router_topk(logits, cfg)
+        e_first = axis_index(mesh, "model") * e_local
+        partial = _dispatch_compute_combine(x, wg, wu, wd, gates, ids, cfg,
+                                            capacity_factor, e_first, e_local)
+        aux = aux_load_balance_loss(logits, ids, cfg)
+        if sh:
+            # the shared expert is TP-sharded over 'model' (its sf dim): its
+            # contribution is partial over 'model' too, folded into one sum
+            sg, su, sd, sgp = sh
+            if data:
+                sg = all_gather(sg, 0, mesh, data)
+                su = all_gather(su, 0, mesh, data)
+                sd = all_gather(sd, 1, mesh, data)
+            hs = F.silu(x @ sg) * (x @ su)
+            partial = partial + torch.sigmoid(x @ sgp) * (hs @ sd)
+        # combine in the activations' dtype, as the reference does
+        return psum_identity_grad(partial.to(x.dtype), mesh, ("model",)), aux
+
+    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    if shared:
+        args += [p["shared_gate"], p["shared_up"], p["shared_down"],
+                 p["shared_gate_proj"]]
+    if not is_distributed(x):
+        return body(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    t = x.shape[0]
+    n_data = 1
+    for a in data_axes:
+        n_data *= sizes[a]
+    dshard = (data_axes if len(data_axes) > 1 else data_axes[0]) \
+        if data_axes and t % n_data == 0 else None
+    x_pl = placements_for((dshard, None), mesh)
+    w_pl = placements_for(("model", data, None), mesh)
+    wd_pl = placements_for(("model", None, data), mesh)
+    rep = placements_for((None, None), mesh)
+    in_pl = [x_pl, rep, w_pl, w_pl, wd_pl]
+    # the gradient of an input replicated over an axis whose ranks compute
+    # differently (other experts over 'model', other tokens where x is
+    # sharded) is partial over that axis
+    def grad_pl(pl):
+        return tuple(Partial() if isinstance(q, Replicate) and (
+            a == "model" or isinstance(xq, Shard)) else q
+            for a, q, xq in zip(names, pl, x_pl))
+    if shared:
+        sf_pl = placements_for((data, "model"), mesh)
+        in_pl += [sf_pl, sf_pl, placements_for(("model", data), mesh), rep]
+    out, aux = local_map(body, out_placements=(list(x_pl), list(rep)),
+                         in_placements=tuple(in_pl),
+                         in_grad_placements=tuple(grad_pl(q) for q in in_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+    return out, aux

@@ -30,12 +30,14 @@ and stays a plain loop.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.sharding import constrain, is_distributed
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     ParamSpec,
@@ -135,12 +137,38 @@ def mamba_forward(p, x: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
     ug = x @ p["in_proj"]
     u, z = ug[..., :d_inner], ug[..., d_inner:]
     u = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
+    u = constrain(u, ("batch", None, "act_ff"))  # shard d_inner over 'model'
     dt, Bc, Cc = _mamba_gates(p, u)
     A = -torch.exp(p["A_log"].float())
-    y, _ = selective_scan_chunked(u.float(), dt.float(), Bc.float(),
-                                  Cc.float(), A, chunk=chunk)
+    scan = functools.partial(selective_scan_chunked, chunk=chunk)
+    if is_distributed(u):
+        scan = _channel_parallel(scan, u)
+    y, _ = scan(u.float(), dt.float(), Bc.float(), Cc.float(), A)
     y = y.to(x.dtype) + u * p["D"]
     return (y * F.silu(z)) @ p["out_proj"]
+
+
+def _channel_parallel(scan, u):
+    """``scan(u, dt, Bc, Cc, A)`` (:func:`selective_scan_chunked`) on each
+    rank's batch rows and channels, as ``u [B, S, d]`` is placed (``d``
+    over ``model`` by the ``act_ff`` constraint): the channels scan
+    independently, ``Bc`` / ``Cc`` are whole on every rank (their gradient
+    partial over the channel axes) and ``A [d, n]`` is split with the
+    channels. Returns ``(y, h)`` placed as ``u`` (``h [B, d, n]``: the
+    channels on dim 1)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    upl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                for p in u.placements)
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in upl)
+    bgrad = tuple(Partial() if p == Shard(2) else q for p, q in zip(upl, bpl))
+    apl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in upl)
+    hpl = tuple(Shard(1) if p == Shard(2) else p for p in upl)
+    return local_map(scan, out_placements=(list(upl), list(hpl)),
+                     in_placements=(upl, upl, bpl, bpl, apl),
+                     in_grad_placements=(upl, upl, bgrad, bgrad, apl),
+                     device_mesh=u.device_mesh, redistribute_inputs=True)
 
 
 def mamba_state_shape(cfg_d_model: int, ssm_state: int, conv: int,

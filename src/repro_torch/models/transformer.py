@@ -36,6 +36,16 @@ layers at ``TRAIN_CAPACITY_FACTOR`` with their load-balancing loss, each
 layer rematerialised by ``remat`` (``layers.remat_call``), the stacked
 layer tensors unbound once a forward (``layers.unstack``).
 
+Over a mesh (the reference's keywords: ``mesh=``, ``batch_axis=``,
+``combine_axes=`` of the serving paths, ``tp_size=`` of training and
+prefill, whose heads are sharded where they divide it: the reference's
+``head_sharded``) the parameters and inputs are DTensors placed by
+``common.sharding``'s rules, the paged attention is the flash-decode
+region of ``models/attention``, a ``moe`` layer takes the expert-parallel
+path of ``moe_ffn``, and the reference's ``constrain`` points redistribute
+the activations. On plain tensors with no mesh every one of them is a
+no-op.
+
 The ``encdec`` family is ``models/encdec.EncDecModel``.
 """
 from __future__ import annotations
@@ -44,8 +54,8 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.common.sharding import constrain, gather_fsdp, use_mesh
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
@@ -53,14 +63,19 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     ParamSpec,
+    abstract_params,
+    argmax_last,
     apply_rope,
     count_template_params,
+    embed_lookup,
     init_params,
     masked_nll,
     mlp_apply,
     mlp_template,
+    param_axes,
     remat_call,
     rms_norm,
+    split_heads,
     tree_map,
     unstack,
 )
@@ -191,6 +206,14 @@ class TransformerLM:
         gen.manual_seed(seed)
         return init_params(gen, self.template(), device=device)
 
+    def abstract_params(self, dtype=torch.float32):
+        """Meta tensors of every parameter (the dry-run's; no memory)."""
+        return abstract_params(self.template(), dtype)
+
+    def param_axes(self):
+        """Each parameter's logical sharding names."""
+        return param_axes(self.template())
+
     def param_count(self) -> int:
         return count_template_params(self.template())
 
@@ -205,7 +228,7 @@ class TransformerLM:
         it is required there (``ValueError`` without it, where the JAX
         package asserts) and refused elsewhere. The image product runs in
         the wider of the two dtypes, as JAX promotes."""
-        x = F.embedding(tokens.long(), params["embed"])
+        x = embed_lookup(params["embed"], tokens)
         if self.cfg.family != "vlm":
             if img_embeds is not None:
                 raise ValueError(f"{self.cfg.name}: img_embeds is for the "
@@ -239,6 +262,8 @@ class TransformerLM:
             out = out * c.embed_scale
         if c.logit_soft_cap > 0:
             out = torch.tanh(out / c.logit_soft_cap) * c.logit_soft_cap
+        if out.dim() == 3:
+            out = constrain(out, ("batch", None, "vocab"))
         return out
 
     def _qkv(self, lp, h: torch.Tensor, positions: torch.Tensor):
@@ -246,21 +271,34 @@ class TransformerLM:
         and k, v [..., Hkv, hd], with qk-norm and RoPE at ``positions``
         (shaped like ``h`` without its last dim)."""
         c = self.cfg
-        lead = h.shape[:-1]
-        q = (h @ lp["wq"]).reshape(*lead, c.num_heads, c.head_dim)
-        k = (h @ lp["wk"]).reshape(*lead, c.num_kv_heads, c.head_dim)
-        v = (h @ lp["wv"]).reshape(*lead, c.num_kv_heads, c.head_dim)
+        q = split_heads(h @ lp["wq"], c.num_heads, c.head_dim)
+        k = split_heads(h @ lp["wk"], c.num_kv_heads, c.head_dim)
+        v = split_heads(h @ lp["wv"], c.num_kv_heads, c.head_dim)
         if c.qk_norm:
             q = rms_norm(q, lp["q_norm"], c.norm_eps)
             k = rms_norm(k, lp["k_norm"], c.norm_eps)
         return (apply_rope(q, positions, c.rope_theta),
                 apply_rope(k, positions, c.rope_theta), v)
 
+    @staticmethod
+    def _constrain_qkv(q, k, v, head_sharded: bool):
+        """The reference's constraints on a block's q/k/v ``[B, S, H, hd]``
+        (``transformer.py:157-163``): heads over the model axis, or, where
+        the head count does not divide it, q over the sequence."""
+        if head_sharded:
+            lg = ("batch", None, "act_heads", None)
+            return constrain(q, lg), constrain(k, lg), constrain(v, lg)
+        return constrain(q, ("batch", "seq", None, None)), k, v
+
     def _mixer_residual(self, lp, x: torch.Tensor, attn_out: torch.Tensor,
                         ssm_out: Optional[torch.Tensor]) -> torch.Tensor:
         """x plus the token mixer's output: the attention branch alone, or
         under ``hybrid`` the mean of the attention and SSM branches, each
-        RMS-normed (``ssm_out``)."""
+        RMS-normed (``ssm_out``). Over a mesh the training and prefill
+        paths constrain the sum to the layer's output placements: DTensor,
+        unlike GSPMD, would keep the tensor-parallel partial sum and
+        scatter it along the sequence, which the MLP's product then cannot
+        shard."""
         c = self.cfg
         if ssm_out is None:
             return x + attn_out * c.residual_scale
@@ -292,49 +330,80 @@ class TransformerLM:
     # training: full forward and loss
     # ------------------------------------------------------------------
     def _train_layer(self, lp, x: torch.Tensor, positions: torch.Tensor,
-                     window: int):
+                     window: int, head_sharded: bool = True):
         """One block in its training form: ``(x, aux)``, ``aux`` the MoE
         load-balancing loss of the layer (float32 zero elsewhere). The
         reference's ``_layer`` without a KV writer."""
         c = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, lp["ln1"], c.norm_eps)
-        q, k, v = self._qkv(lp, h, positions)
+        q, k, v = self._constrain_qkv(*self._qkv(lp, h, positions),
+                                      head_sharded)
         out = attn.dense_or_blockwise(q, k, v, positions, positions,
                                       causal=True, window=window)
-        ssm_out = (ssm_lib.mamba_forward(lp["ssm"], h)
-                   if c.family == "hybrid" else None)
-        x = self._mixer_residual(lp, x, out.reshape(b, s, c.q_dim) @ lp["wo"],
-                                 ssm_out)
-        return self._mlp_residual(lp, x, TRAIN_CAPACITY_FACTOR)
+        out = out.reshape(b, s, c.q_dim)
+        if head_sharded:
+            out = constrain(out, ("batch", None, "act_ff"))
+        attn_out, ssm_out = out @ lp["wo"], None
+        if c.family == "hybrid":
+            # both branches' partial sums reduced before their norms
+            rows = ("batch", None, "embed")
+            attn_out = constrain(attn_out, rows)
+            ssm_out = constrain(ssm_lib.mamba_forward(lp["ssm"], h), rows)
+        x = constrain(self._mixer_residual(lp, x, attn_out, ssm_out),
+                      ("batch", None, "embed"))
+        x, aux = self._mlp_residual(lp, x, TRAIN_CAPACITY_FACTOR)
+        return constrain(x, ("batch", None, "embed")), aux
 
     def forward(self, params, tokens: torch.Tensor,
                 img_embeds: Optional[torch.Tensor] = None, *,
-                compute_dtype=torch.bfloat16, remat: str = "full"
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                compute_dtype=torch.bfloat16, remat: str = "full",
+                tp_size: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward of ``tokens [B, S_text]`` (after the image
         under ``vlm``): ``(final hidden [B, S, D] in compute_dtype, total
         aux loss)``. Every parameter is cast to ``compute_dtype`` first;
-        ``remat`` is one of ``layers.REMAT``, applied to each layer."""
+        ``remat`` is one of ``layers.REMAT``, applied to each layer.
+        Attention takes the reference's head-sharded constraints where the
+        heads divide ``tp_size`` (its ``head_sharded``)."""
         c = self.cfg
+        head_sharded = c.num_heads % max(tp_size, 1) == 0
         p = tree_map(lambda a: a.to(compute_dtype), params)
-        x = self.embed(p, tokens, img_embeds)
+        x = self.embed(self._gathered(p), tokens, img_embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
+        x = constrain(x, ("batch", None, "embed"))
         layers = unstack(p["layers"])
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for grp in layer_groups(c):
             auxs = []
             for lp in layers[grp.start:grp.end]:
                 def layer(xx, lp=lp, window=grp.window):
-                    return self._train_layer(lp, xx, positions, window)
+                    return self._train_layer(self._gathered(lp, True), xx,
+                                             positions, window, head_sharded)
                 x, aux = remat_call(layer, x, remat)
                 auxs.append(aux)
             aux_total = aux_total + torch.stack(auxs).sum()
         return rms_norm(x, p["final_norm"], c.norm_eps), aux_total
 
+    def _gathered(self, p, layer: bool = False):
+        """Parameters as a training step computes with them over a mesh:
+        the top-level ones (``layer=False``: the layer stack is left out)
+        or one layer's, their FSDP shards gathered
+        (``common.sharding.gather_fsdp``) one layer at a time, inside the
+        layer's remat region, so that its backward gathers again, as FSDP
+        does. The MoE experts are left to the expert-parallel path, which
+        gathers them itself. Plain tensors pass unchanged."""
+        axes = self.param_axes()
+        axes = tree_map(lambda ax: ax[1:], axes["layers"]) if layer else axes
+        keep = {k for k in p if k not in ("layers", "moe")}
+        out = gather_fsdp({k: p[k] for k in keep}, {k: axes[k] for k in keep})
+        if "moe" in p:
+            out["moe"] = p["moe"]
+        return out
+
     def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
-                remat: str = "full") -> Tuple[torch.Tensor, Dict]:
+                remat: str = "full", tp_size: int = 1
+                ) -> Tuple[torch.Tensor, Dict]:
         """batch: tokens [B, S], labels [B, S] (-1 = masked), and under
         ``vlm`` img_embeds [B, img_tokens, D]. Returns ``(total, metrics)``:
         the masked NLL plus a z-loss of ``1e-4 * lse**2`` plus
@@ -343,7 +412,7 @@ class TransformerLM:
         ``compute_dtype``), then widened to float32."""
         hidden, aux = self.forward(params, batch["tokens"],
                                    img_embeds=batch.get("img_embeds"),
-                                   remat=remat)
+                                   remat=remat, tp_size=tp_size)
         return self.head_loss(params, hidden, batch["labels"], aux)
 
     def head_loss(self, params, hidden: torch.Tensor, labels: torch.Tensor,
@@ -390,9 +459,17 @@ class TransformerLM:
         write_slot: torch.Tensor,   # [B]
         *,
         ssm_state: Optional[Dict[str, torch.Tensor]] = None,  # hybrid only
+        mesh=None,
+        batch_axis=None,
+        combine_axes=(),
     ) -> torch.Tensor:
         """One Libra decode step. Returns next_tokens [B] int32; the pool
         is updated in place.
+
+        With a ``mesh`` the paged attention is the flash-decode region
+        over ``combine_axes`` (``attention.paged_decode_attention``); the
+        inputs are DTensors (or this rank's shards) placed as the
+        reference's dry-run places them.
 
         Under ``hybrid`` (and only then) ``ssm_state`` is required:
         ``{"ssm": [L, B, d_inner, n], "conv": [L, B, K-1, d_inner]}``
@@ -407,30 +484,35 @@ class TransformerLM:
         if (ssm_state is not None) != hybrid:
             raise ValueError(f"{c.name}: ssm_state is for the hybrid "
                              "family's decode step, and it needs one")
-        x = params["embed"][tokens.long()]                      # [B, D]
-        b = x.shape[0]
-        widx = attn.decode_write_index(tables, page_pos, seq_lens,
-                                       write_shard, write_slot, pool.shape[2])
-        for li in range(c.num_layers):
-            lp = layer_params(params, li)
-            h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
-            out = attn.paged_decode_attention(
-                q[:, 0], k[:, 0], v[:, 0], pool[li], tables, page_pos,
-                seq_lens, write_shard, write_slot, window=self.windows[li],
-                impl=self.attn_impl, write_index=widx)
-            ssm_out = None
-            if hybrid:
-                ssm_out, st = ssm_lib.mamba_step(
-                    lp["ssm"], h, {key: t[li] for key, t in ssm_state.items()})
-                for key, val in st.items():
-                    ssm_state[key][li].copy_(val)
-            x = self._mixer_residual(lp, x, out.reshape(b, c.q_dim) @ lp["wo"],
-                                     ssm_out)
-            x, _aux = self._mlp_residual(lp, x)
-        x = rms_norm(x, params["final_norm"], c.norm_eps)
-        return self.logits(params, x, weight_dtype=torch.bfloat16
-                           ).argmax(dim=-1).to(torch.int32)
+        with use_mesh(mesh):
+            x = embed_lookup(params["embed"], tokens)     # [B, D]
+            b = x.shape[0]
+            mesh_kw = dict(mesh=mesh, batch_axis=batch_axis,
+                           combine_axes=combine_axes)
+            mesh_kw["write_index"] = attn.decode_write_index(
+                tables, page_pos, seq_lens, write_shard, write_slot,
+                pool.shape[2], **mesh_kw)
+            for li in range(c.num_layers):
+                lp = layer_params(params, li)
+                h = rms_norm(x, lp["ln1"], c.norm_eps)
+                q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
+                out = attn.paged_decode_attention(
+                    q[:, 0], k[:, 0], v[:, 0], pool[li], tables, page_pos,
+                    seq_lens, write_shard, write_slot,
+                    window=self.windows[li], impl=self.attn_impl, **mesh_kw)
+                ssm_out = None
+                if hybrid:
+                    ssm_out, st = ssm_lib.mamba_step(
+                        lp["ssm"], h,
+                        {key: t[li] for key, t in ssm_state.items()})
+                    for key, val in st.items():
+                        ssm_state[key][li].copy_(val)
+                x = self._mixer_residual(lp, x, out.reshape(b, c.q_dim)
+                                         @ lp["wo"], ssm_out)
+                x, _aux = self._mlp_residual(lp, x)
+            x = rms_norm(x, params["final_norm"], c.norm_eps)
+            return argmax_last(self.logits(
+                params, x, weight_dtype=torch.bfloat16)).to(torch.int32)
 
     @torch.no_grad()
     def prefill(
@@ -446,10 +528,17 @@ class TransformerLM:
         token_valid: torch.Tensor,
         *,
         img_embeds: Optional[torch.Tensor] = None,  # vlm only
+        mesh=None,
+        batch_axis=None,
+        combine_axes=(),
+        tp_size: int = 1,
     ) -> torch.Tensor:
         """Ingress: run the prompt, anchor its KV into pool pages in place,
         return the first sampled tokens [B] int32. Only token ids ever
-        surface to the host. Under ``hybrid`` the Mamba mixers' final
+        surface to the host. With a ``mesh`` each rank anchors the pages
+        of its shard of ``combine_axes``, and attention runs head-parallel
+        where the heads divide ``tp_size`` (the reference's
+        ``head_sharded``). Under ``hybrid`` the Mamba mixers' final
         states are dropped, as in the JAX model: prefill writes no
         ``ssm_state``, so a request's decode starts from whatever its
         batch row holds (a fault of the reference, carried).
@@ -464,31 +553,51 @@ class TransformerLM:
         position: ``seq_lens`` there is ``img_tokens + text_len + i`` for
         the ``i``-th step, so that they read the image's anchored pages
         and each token's K/V lands past them."""
+        with use_mesh(mesh):
+            return self._prefill(params, tokens, seq_lens, pool, tables,
+                                 token_shard, token_slot, token_off,
+                                 token_valid, img_embeds, mesh, batch_axis,
+                                 combine_axes, tp_size)
+
+    def _prefill(self, params, tokens, seq_lens, pool, tables, token_shard,
+                 token_slot, token_off, token_valid, img_embeds, mesh,
+                 batch_axis, combine_axes, tp_size: int) -> torch.Tensor:
         c = self.cfg
+        head_sharded = c.num_heads % max(tp_size, 1) == 0
         x = self.embed(params, tokens, img_embeds)              # [B, S, D]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        widx = attn.prefill_write_index(tables, token_shard, token_slot,
-                                        token_off, token_valid)
+        x = constrain(x, ("batch", None, "embed"))
+        write_kw = dict(mesh=mesh, batch_axis=batch_axis,
+                        combine_axes=combine_axes)
+        write_kw["write_index"] = attn.prefill_write_index(
+            tables, token_shard, token_slot, token_off, token_valid,
+            **write_kw)
         for li in range(c.num_layers):
             lp = layer_params(params, li)
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._qkv(lp, h, positions)
+            q, k, v = self._constrain_qkv(*self._qkv(lp, h, positions),
+                                          head_sharded)
             attn.prefill_write_pages(k, v, pool[li], tables, token_shard,
                                      token_slot, token_off, token_valid,
-                                     write_index=widx)
+                                     **write_kw)
             out = attn.prefill_attention(q, k, v, window=self.windows[li],
                                          impl=self.attn_impl)
+            out = out.reshape(b, s, c.q_dim)
+            if head_sharded:
+                out = constrain(out, ("batch", None, "act_ff"))
             ssm_out = (ssm_lib.mamba_forward(lp["ssm"], h)
                        if c.family == "hybrid" else None)
-            x = self._mixer_residual(lp, x, out.reshape(b, s, c.q_dim)
-                                     @ lp["wo"], ssm_out)
+            x = constrain(self._mixer_residual(lp, x, out @ lp["wo"],
+                                               ssm_out),
+                          ("batch", None, "embed"))
             x, _aux = self._mlp_residual(lp, x)
+            x = constrain(x, ("batch", None, "embed"))
         # sample the first output token from the last valid position
         idx = (seq_lens.long() - 1).clamp(min=0) + (s - tokens.shape[1])
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
-        return self.logits(params, last).argmax(dim=-1).to(torch.int32)
+        return argmax_last(self.logits(params, last)).to(torch.int32)
 
     # ------------------------------------------------------------------
     # serving baseline: the "standard stack" contiguous-copy datapath
@@ -507,7 +616,7 @@ class TransformerLM:
         ``vlm`` it takes no image, as in the JAX model, and so serves the
         text-only model (carried too)."""
         c = self.cfg
-        x = params["embed"][tokens.long()]                      # [B, S, D]
+        x = embed_lookup(params["embed"], tokens)                      # [B, S, D]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         kv = x.new_zeros((c.num_layers, b, max_len, 2, c.num_kv_heads,
@@ -524,7 +633,7 @@ class TransformerLM:
         idx = (seq_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
-        return self.logits(params, last).argmax(dim=-1).to(torch.int32), kv
+        return argmax_last(self.logits(params, last)).to(torch.int32), kv
 
     @torch.no_grad()
     def decode_step_dense(self, params, tokens: torch.Tensor,
@@ -546,7 +655,7 @@ class TransformerLM:
         c = self.cfg
         if not donate:
             cache = cache.clone()
-        x = params["embed"][tokens.long()]                      # [B, D]
+        x = embed_lookup(params["embed"], tokens)                      # [B, D]
         b, smax = x.shape[0], cache.shape[2]
         rows = torch.arange(b, device=x.device)
         # dynamic_update_slice clamps the start so that the update fits

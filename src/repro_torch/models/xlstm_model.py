@@ -28,15 +28,19 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.common.sharding import constrain, is_distributed
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models.layers import (
     ParamSpec,
+    abstract_params,
+    argmax_last,
     count_template_params,
+    embed_lookup,
     init_params,
     masked_nll,
+    param_axes,
     remat_call,
     rms_norm,
     tree_map,
@@ -130,6 +134,14 @@ class XLSTMModel:
         gen.manual_seed(seed)
         return init_params(gen, self.template(), device=device)
 
+    def abstract_params(self, dtype=torch.float32):
+        """Meta tensors of every parameter (the dry-run's; no memory)."""
+        return abstract_params(self.template(), dtype)
+
+    def param_axes(self):
+        """Each parameter's logical sharding names."""
+        return param_axes(self.template())
+
     def param_count(self) -> int:
         return count_template_params(self.template())
 
@@ -148,17 +160,66 @@ class XLSTMModel:
             w = w.to(compute_dtype)
         elif weight_dtype is not None:
             w = w.to(weight_dtype).to(hidden.dtype)
-        return hidden @ w
+        out = hidden @ w
+        if out.dim() == 3:
+            out = constrain(out, ("batch", None, "vocab"))
+        return out
+
+    # -- over a mesh ----------------------------------------------------------
+    @staticmethod
+    def _batch_local(fn, params, args, arg_dims, out_dims):
+        """``fn(params, *args)`` on this rank's batch rows: the DTensor
+        parameters gathered whole (their gradient partial over the batch
+        axes), each DTensor of ``args`` (a tensor or a dict of them) taken
+        at its batch shard along ``arg_dims``, and each of the outputs
+        wrapped back with its batch along ``out_dims`` (``None``:
+        replicated). The blocks' scans, gates and state updates have no
+        DTensor strategy, so the family runs data-parallel over a mesh,
+        the batch split as the first argument's is (the reference lets
+        GSPMD split it)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = args[0].device_mesh
+        baxes = {i for i, p in enumerate(args[0].placements)
+                 if isinstance(p, Shard) and p.dim == 0}
+
+        def pl(d):
+            return [Shard(d) if d is not None and i in baxes else Replicate()
+                    for i in range(mesh.ndim)]
+
+        grad = [Partial() if i in baxes else Replicate()
+                for i in range(mesh.ndim)]
+
+        def local(a, d, grad_pl=None):
+            if not isinstance(a, DTensor):
+                return a
+            a = a.redistribute(mesh, pl(d))
+            return a.to_local(grad_placements=grad_pl)
+
+        lp = tree_map(lambda a: local(a, None, grad), params)
+        la = [tree_map(lambda a, d=d: local(a, d), arg)
+              for arg, d in zip(args, arg_dims)]
+        out = fn(lp, *la)
+        return tuple(tree_map(lambda o, d=d: DTensor.from_local(
+            o, mesh, pl(d), run_check=False), o_)
+            for o_, d in zip(out, out_dims))
 
     # -- training ------------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *,
                 compute_dtype=torch.bfloat16, remat: str = "full"):
         """Training forward: ``(final hidden [B, S, D] in compute_dtype,
         aux)``, ``aux`` a float32 zero (no router). Blocks run in position
-        order, each under ``remat``."""
+        order, each under ``remat``. On DTensors, per rank on its batch
+        rows (:meth:`_batch_local`)."""
+        if is_distributed(tokens):
+            return self._batch_local(
+                lambda p, t: self.forward(p, t, compute_dtype=compute_dtype,
+                                          remat=remat),
+                params, (tokens,), (0,), (0, None))
         c = self.cfg
         p = tree_map(lambda a: a.to(compute_dtype), params)
-        x = F.embedding(tokens.long(), p["embed"])
+        x = embed_lookup(p["embed"], tokens)
+        x = constrain(x, ("batch", None, "embed"))
         stacks = {kind: unstack(p[kind])
                   for kind in ("mlstm", "slstm") if kind in p}
         for kind, i in _blocks(self.kinds):
@@ -174,10 +235,11 @@ class XLSTMModel:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
-                remat: str = "full"):
+                remat: str = "full", tp_size: int = 1):
         """The masked next-token NLL of ``batch`` (tokens, labels; -1 =
         masked), with no z-loss, as the reference's. The head is a
-        bfloat16 product widened to float32."""
+        bfloat16 product widened to float32. ``tp_size`` is taken for the
+        trainer's sake and unused, as in the reference."""
         hidden, _ = self.forward(params, batch["tokens"], remat=remat)
         logits = self.logits(params, hidden,
                              compute_dtype=torch.bfloat16).float()
@@ -217,10 +279,16 @@ class XLSTMModel:
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """O(1) decode: recurrent state in, token ids out. ``state`` is
         updated in place and returned. ``seq_lens`` is unused, as in the
-        JAX model (the state carries the position)."""
+        JAX model (the state carries the position). On DTensors, per rank
+        on its batch rows (:meth:`_batch_local`; the state's batch is its
+        dim 1)."""
+        if is_distributed(tokens):
+            return self._batch_local(self.decode_step, params,
+                                     (tokens, seq_lens, state), (0, 0, 1),
+                                     (0, 1))
         del seq_lens
         c = self.cfg
-        x = params["embed"][tokens.long()]                      # [B, D]
+        x = embed_lookup(params["embed"], tokens)                      # [B, D]
         for kind, i in _blocks(self.kinds):
             lp = tree_map(lambda a: a[i], params[kind])
             if kind == "mlstm":
@@ -236,8 +304,8 @@ class XLSTMModel:
             for skey, key in keys:
                 state[skey][i].copy_(st[key])
         x = rms_norm(x, params["final_norm"], c.norm_eps)
-        next_tokens = self.logits(params, x, weight_dtype=torch.bfloat16
-                                  ).argmax(dim=-1).to(torch.int32)
+        next_tokens = argmax_last(self.logits(
+            params, x, weight_dtype=torch.bfloat16)).to(torch.int32)
         return next_tokens, state
 
     @torch.no_grad()
@@ -248,10 +316,14 @@ class XLSTMModel:
 
         As in the JAX model, the state (the conv window included) is the
         one at the end of the padded batch, not at each row's
-        ``seq_lens``; only the first token is read at ``seq_lens - 1``."""
+        ``seq_lens``; only the first token is read at ``seq_lens - 1``.
+        On DTensors, per rank on its batch rows (:meth:`_batch_local`)."""
+        if is_distributed(tokens):
+            return self._batch_local(self.prefill, params, (tokens, seq_lens),
+                                     (0, 0), (0, 1))
         c = self.cfg
         b = tokens.shape[0]
-        x = params["embed"][tokens.long()]                      # [B, S, D]
+        x = embed_lookup(params["embed"], tokens)                      # [B, S, D]
         state = self.init_decode_state(b, device=x.device)
         for kind, i in _blocks(self.kinds):
             lp = tree_map(lambda a: a[i], params[kind])
@@ -274,5 +346,5 @@ class XLSTMModel:
         idx = (seq_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
-        first = self.logits(params, last).argmax(dim=-1).to(torch.int32)
+        first = argmax_last(self.logits(params, last)).to(torch.int32)
         return first, state

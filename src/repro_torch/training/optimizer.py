@@ -10,9 +10,13 @@ update returns new trees (its jitted step donates the old ones), while
 returns them. A model at full width then needs no second copy of its
 parameters and moments at the step (16 bytes a parameter, not 28).
 
-``quantize_int8`` / ``dequantize_int8`` are here; the JAX package's
-``compressed_psum`` (an all-reduce across a mesh axis) waits for a device
-mesh (``ROADMAP.md``, queue 1, item 5).
+``compressed_psum`` is the reference's int8 gradient reduction with
+error feedback across a process group (a mesh axis's,
+``DeviceMesh.get_group``), over ``quantize_int8`` / ``dequantize_int8``.
+
+The parameters and moments may be DTensors (``Trainer(mesh=...)``): the
+moments are made ``zeros_like`` their parameters, so they take the
+parameters' placements, and every update is elementwise.
 """
 from __future__ import annotations
 
@@ -66,11 +70,13 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_adamw(params) -> AdamWState:
-    """Zero moments shaped like ``params``, on their devices, and step 0."""
+    """Zero moments shaped like ``params``, on their devices (and, for
+    DTensors, with their placements), and step 0."""
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
                       tree_map(zeros, params), tree_map(zeros, params))
 
@@ -133,3 +139,30 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def compressed_psum(grads, group, error_state):
+    """int8 all-reduce with error feedback: each leaf plus its carried
+    residual is quantised to int8 (one scale a leaf), the dequantised
+    values are summed over ``group`` (a process group; ``None`` is the
+    default group) and divided by its size, and the quantisation residual
+    is returned to be carried into the next step, so the compressed
+    reduction is unbiased in the long run. Used for the cross-pod (``pod``
+    axis) gradient reduction, where the inter-node bandwidth is the
+    bottleneck. Returns ``(mean tree, new error tree)``, float32."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    if group is None:
+        group = dist.group.WORLD
+    n = dist.get_world_size(group)
+
+    def one(g, e):
+        g = g.float() + e
+        q, scale = quantize_int8(g)
+        deq = dequantize_int8(q, scale)
+        deq_sum = funcol.wait_tensor(funcol.all_reduce(deq, "sum", group))
+        return deq_sum / n, g - deq   # (mean, local residual)
+
+    out = tree_map(one, grads, error_state)
+    return tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out)

@@ -270,9 +270,10 @@ def test_paged_decode_attention_matches_jax():
     t_out = tattn.paged_decode_attention(*t_args)
     _close(j_out, t_out)
     _close(j_pool, t_args[3])                  # the pool, updated in place
-    rows, pid, off = tattn.decode_write_index(*t_args[4:], page)
-    assert rows.tolist() == [0, 1] and pid.tolist() == [5, 9] \
-        and off.tolist() == [3, 0]
+    # row 2 is dropped: it writes row 0's value into row 0's slot again
+    src, pid, off, kept = tattn.decode_write_index(*t_args[4:], page)
+    assert src.tolist() == [0, 1, 0] and pid.tolist() == [5, 9, 5] \
+        and off.tolist() == [3, 0, 3] and bool(kept)
 
 
 def test_prefill_write_pages_matches_jax():
@@ -292,6 +293,41 @@ def test_prefill_write_pages_matches_jax():
     out = tattn.prefill_write_pages(*t_args)
     assert out is t_args[2]
     _close(j_pool, out)
+
+
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+def test_writes_that_keep_no_row_leave_the_pool_unchanged(path):
+    """Every row dropped (its page on the other shard, or missing): the
+    static write puts each slot's own value back, so the pool stays bit
+    for bit what it was, as the JAX package's ``mode="drop"`` leaves it."""
+    rng = np.random.default_rng(7)
+    b, s, hkv, hd, page, p_total = 2, 8, 2, 8, 8, 6
+    pool = _rand(rng, (p_total, page, 2, hkv, hd))
+    tables = np.array([[[2, -1], [3, 4]], [[-1, -1], [1, 5]]], np.int32)
+    if path == "decode":
+        page_pos = np.array([[[0, -1], [0, 8]], [[-1, -1], [0, 8]]],
+                            np.int32)
+        args = (_rand(rng, (b, 4, hd)), _rand(rng, (b, hkv, hd)),
+                _rand(rng, (b, hkv, hd)), pool, tables, page_pos,
+                np.array([3, 9], np.int32), np.array([1, 0], np.int32),
+                np.array([0, 0], np.int32))
+        j_out, j_pool = jattn.paged_decode_attention(
+            *map(jnp.asarray, args), **_mesh_kw(b))
+        t_args = list(map(torch.from_numpy, args))
+        _close(j_out, tattn.paged_decode_attention(*t_args))
+        t_pool = t_args[3]
+    else:
+        tsh = np.array([[1] * s, [0] * s], np.int32)
+        zeros = np.zeros((b, s), np.int32)
+        tval = np.array([[False] * s, [True] * s])
+        args = (_rand(rng, (b, s, hkv, hd)), _rand(rng, (b, s, hkv, hd)),
+                pool, tables, tsh, zeros, zeros, tval)
+        j_pool = jattn.prefill_write_pages(*map(jnp.asarray, args),
+                                           **_mesh_kw(b))
+        t_args = list(map(torch.from_numpy, args))
+        t_pool = tattn.prefill_write_pages(*t_args)
+    np.testing.assert_array_equal(np.asarray(j_pool), pool)
+    np.testing.assert_array_equal(t_pool.numpy(), pool)
 
 
 # ---------------------------------------------------------------------------

@@ -140,9 +140,27 @@ def test_atomic_commit_survives_partial_save(tmp_path):
 
 
 def test_resume_onto_a_mesh_waits_for_the_port_mesh(tmp_path):
+    """``resume(mesh=...)`` waited for the port's mesh and raised; the
+    mesh is here, so it restores onto the mesh's placements (a one-rank
+    ``gloo`` group, destroyed after)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common.sharding import make_mesh
+
     t = _mk_trainer(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t.resume(mesh=object())
+    t.train(5)
+    t.ckpt.wait()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        t2 = _mk_trainer(str(tmp_path))
+        assert t2.resume(mesh=mesh) and t2.step == 5
+        assert isinstance(t2.params["layers"]["wq"], DTensor)
+        assert t2.mesh is mesh
+    finally:
+        dist.destroy_process_group()
 
 
 def test_trainer_refuses_cuda_without_a_gpu():
