@@ -279,7 +279,8 @@ def csv(name: str, us: float, derived: str) -> None:
 #: gathered on the host
 XFER_DIFFERENCES = ("xfer_donated_rounds", "xfer_host_gathers")
 
-_TIMED = re.compile(r"(_dt|_s|_us|_ms|_per_s)$|speedup|ratio|_over_|^tok/s$")
+_TIMED = re.compile(
+    r"(_dt|_s|_us|_ms|_per_s)$|speedup|slowdown|ratio|_over_|^tok/s$")
 
 
 def _timed(key: str) -> bool:
@@ -294,8 +295,8 @@ def _untimed_token(tok: str) -> bool:
 def untimed(row: dict) -> dict:
     """``row`` less every field the wall clock decides (``us_per_call``,
     ``msgs_per_s``, ``rounds_per_s``, ``*_dt``, ``*_s``, ``*_us``,
-    ``*_ms``, speedups and ratios, and the timed ``k=v`` pairs of
-    ``derived``), less the ``impl`` strings (the reference's ``ref`` and
+    ``*_ms``, speedups, slowdowns and ratios, and the timed ``k=v`` pairs
+    of ``derived``), less the ``impl`` strings (the reference's ``ref`` and
     ``fused-round:ref`` are the port's ``auto`` and ``fused-round``) and
     the deliberate ``xfer`` differences :data:`XFER_DIFFERENCES`.
     Everything else (counts, counters, identity flags) stays."""

@@ -19,8 +19,6 @@ After the benches (unless ``--smoke``, or ``--only`` names another bench)
 it prints the roofline summary of the port's dry-run artifacts
 (``results/dryrun_torch/``, written by ``repro_torch.launch.dryrun``), as
 the reference's does of its own; ``--only roofline`` prints only that.
-The reference's ``fig6c_ktls`` (an attention microbenchmark) is not
-ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +39,7 @@ BENCHES = [
     ("batched_datapath", "benchmarks_torch.bench_batched_datapath"),
     ("dma_overlap", "benchmarks_torch.bench_dma_overlap"),
     ("cluster_proxy", "benchmarks_torch.bench_cluster_proxy"),
+    ("fig6c_ktls", "benchmarks_torch.bench_ktls_analogue"),
     ("fig6cd_ktls_proxy", "benchmarks_torch.bench_ktls_proxy"),
     ("policy_proxy", "benchmarks_torch.bench_policy_proxy"),
     ("chaos_proxy", "benchmarks_torch.bench_chaos_proxy"),

@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
+seven TPU kernels' and the kTLS-analogue bench's two, eight sources) into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
-the 21 phases below, in order but where a phase says when it runs:
+the 23 phases below, in order but where a phase says when it runs:
 
 1. **parity** -- each datapath kernel against its plain PyTorch version on
    the card, on seeded cases at the deployment shapes and at small ragged
@@ -322,6 +323,37 @@ the 21 phases below, in order but where a phase says when it runs:
    destroyed; then (d) the dry-run of phi4-mini-3.8b ``decode_32k`` on
    the single pod (rank 0 of a 256-rank fake group, fake CPU tensors),
    its memory, counts and roofline terms on the H100 row printed.
+22. **ktls_analogue** (after phase 21) -- the kTLS-analogue bench
+   (``benchmarks_torch/bench_ktls_analogue.py``, ``fig6c_ktls``): decode
+   attention of q ``[8, 12, 64]`` over every key of kv ``[8, ctx, 2, 12,
+   64]`` with no scale and no mask, at ctx 256, 1024 and 4096, on the
+   bench's draws. ``ktls_dequant`` against its plain version bit for bit
+   (and the plain version on the card against the CPU's), also with
+   ``q = 1`` over every float32 bit pattern as ``amax``;
+   ``ktls_attention`` over float32 K/V and over int8 K/V with ``amax``
+   (dequantised in registers) against its plain version within
+   ``atol = rtol = 1e-4``, the error printed. Then ``benchmarks_torch.run
+   --only fig6c_ktls --device cuda`` in this process, into a temporary
+   directory: no ``ERROR`` row, every row, each regime's kernel launched
+   6 times a context (``plain`` and ``sw`` over float K/V, ``hw`` over
+   int8, ``sw``'s dequantise pass). Prints each regime's µs as the bench
+   timed it, and CUDA-event times (clean L2) of each kernel, regime and
+   plain version and of ``scaled_dot_product_attention`` (scale 1) beside
+   the float attention, each beside its bound (bytes over 3.35 TB/s:
+   201.3 MB plain, 53.5 MB hw, 456.1 MB sw at ctx 4096). Whether ``hw <
+   plain < sw`` holds is recorded, not checked.
+23. **proxy_serving** (after phase 22) -- ``examples/proxy_serving_torch.py``
+   on the card: (a) the script as a subprocess with no arguments must
+   exit 0, its stream part printing the lines the CPU's
+   ``stream_proxy("cpu")`` prints; (b) its ``serving_proxy`` loop with
+   the full libra-proxy-125m (12 layers, d_model 768; parameters from
+   ``init_params(0)``), 8 requests of 44 tokens, 6 new, through the
+   kernels and through the plain versions: tokens under phase 6's
+   near-tie rule, ``EngineStats``, ``CopyCounters``, the printed lines
+   (VPIs masked: a stack draws its secret at random) and the free pages
+   (the reference's forwarded pages stay held: F6, carried) identical,
+   ``flash_attention`` launched once a layer a prefill and
+   ``paged_attention`` once a layer a decode step by the kernel run only.
 
 Float32 products of the plain versions run in full float32 (TF32 off).
 Each phase prints one JSON line. Then come the card's name and power limit
@@ -4917,6 +4949,367 @@ def mesh_phase(dev, torch, np) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the kTLS-analogue bench (fig6c_ktls)
+# ---------------------------------------------------------------------------
+
+#: the kTLS-analogue bench's kernels (``csrc/ktls_attention.cu``): they
+#: replace no ``pallas_call`` but the reference bench's jitted regimes
+KTLS_KERNELS = ("ktls_attention", "ktls_dequant")
+KTLS_REPLACES = ("benchmarks/bench_ktls_analogue.py:41-62 `plain` / "
+                 "`sw_mode` / `hw_mode` (XLA fusions; no pallas_call)")
+#: launches of one ``fig6c_ktls`` run: a warm-up and 5 timed calls a
+#: regime a context; ``plain`` and ``sw`` attend over float K/V, ``hw``
+#: over int8, and ``sw`` dequantises once a call
+KTLS_BENCH_CALLS = 6
+
+
+#: each regime's work, by the kernel that does it (``sw`` runs two)
+KTLS_REGIMES = {"plain": "attention_float", "hw": "attention_int8",
+                "sw": "sw"}
+
+
+def ktls_work(ctx: int, b: int, hq: int, hkv: int, hd: int) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of each kernel, and of ``sw``'s two, at one context: a key
+    costs 4 hd float32 operations a query head (q k and p v, a
+    multiply-add each), an int8 element 2 (a product and a division)."""
+    elems = b * ctx * 2 * hkv * hd
+    f32_kv, i8_kv = 4 * elems, elems + 4 * b * ctx * 2 * hkv
+    q_out = 2 * 4 * b * hq * hd
+    attn_ops = 4 * hd * ctx * b * hq
+    return {"attention_float": (f32_kv + q_out, attn_ops),
+            "attention_int8": (i8_kv + q_out, attn_ops + 2 * elems),
+            "dequant": (i8_kv + f32_kv, 2 * elems),
+            "sw": (i8_kv + 2 * f32_kv + q_out, attn_ops + 2 * elems)}
+
+
+#: phase 22: float32 bit patterns a chunk of the dequantise pass's
+#: exhaustive check (1 GiB of amax)
+DIV127_CHUNK = 1 << 28
+
+
+def div127_exhaustive(dev, torch, ops) -> dict:
+    """``ktls_dequant`` of ``q = 1`` times every float32 bit pattern as
+    ``amax``, against its plain version (the IEEE quotient by 127), in
+    chunks: the kernel's quotient by 127 (``div127`` where ``amax`` lies
+    in its exact range, a division elsewhere) is the correctly rounded
+    quotient for every float32 (NaN against NaN)."""
+    ones = torch.ones((DIV127_CHUNK, 1), dtype=torch.int8, device=dev)
+    bad, first = 0, None
+    for start in range(0, 1 << 32, DIV127_CHUNK):
+        amax = torch.arange(start, start + DIV127_CHUNK, dtype=torch.int64,
+                            device=dev).to(torch.int32).view(
+                                torch.float32).view(-1, 1)
+        got = ops.ktls_dequant(ones, amax, impl="cuda")
+        want = ops.ktls_dequant(ones, amax, impl="ref")
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (
+            got.isnan() & want.isnan())
+        n = int((~same).sum().item())
+        if n and first is None:
+            i = int((~same).nonzero()[0, 0].item())
+            first = {"bits": hex((start + i) & 0xFFFFFFFF),
+                     "got": got[i, 0].item(), "want": want[i, 0].item()}
+        bad += n
+        del amax, got, want, same
+    check(bad == 0, f"ktls_dequant: {bad} float32 patterns differ from the "
+          f"IEEE quotient by 127 (first {first})")
+    return {"patterns": 1 << 32, "mismatches": bad}
+
+
+def ktls_analogue(dev, torch, np, ops, kktls) -> dict:
+    """Phase 22: the kTLS-analogue bench on the card. At each context of
+    ``benchmarks_torch/bench_ktls_analogue.py``, on its draws: the
+    dequantise kernel against its plain version bit for bit (and the plain
+    version on the card against the CPU's; first over every float32 bit
+    pattern, :func:`div127_exhaustive`), the float and int8 attention
+    kernels against theirs within ``ATTN_TOL``; then ``benchmarks_torch.run
+    --only fig6c_ktls --device cuda`` in this process, into a temporary
+    directory (no ``ERROR`` row, every row there, each kernel launched as
+    the regimes call it); then CUDA-event times (clean L2) of each kernel,
+    regime, plain version and of ``scaled_dot_product_attention`` (scale
+    1) beside the float attention, with their bounds. Whether ``hw <
+    plain < sw`` holds is recorded, not checked."""
+    import contextlib
+    import io
+    import tempfile
+
+    from benchmarks_torch import bench_ktls_analogue as bench
+    from benchmarks_torch import run as brun
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    frate = peak_ops_per_s(torch, FP32_OPS_PER_SM_CLOCK)
+    shape = dict(b=bench.B, hq=bench.HQ, hkv=bench.HKV, hd=bench.HD)
+    exhaustive = div127_exhaustive(dev, torch, ops)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)          # the bench's draws, in order
+    per_ctx, errs = {}, {"attention_float": 0.0, "attention_int8": 0.0,
+                         "dequant": 0.0}
+    for ctx in bench.CONTEXTS:
+        q = torch.from_numpy(rng.standard_normal(
+            (shape["b"], shape["hq"], shape["hd"])).astype(np.float32)
+        ).to(dev)
+        kv = torch.from_numpy(rng.standard_normal(
+            (shape["b"], ctx, 2, shape["hkv"], shape["hd"])
+        ).astype(np.float32)).to(dev)
+        kq, amax = bench.quant(kv)
+        deq_k = ops.ktls_dequant(kq, amax, impl="cuda")
+        deq_r = ops.ktls_dequant(kq, amax, impl="ref")
+        check(torch.equal(deq_k, deq_r),
+              f"ktls_dequant ctx {ctx}: not bit-identical to the plain "
+              f"version ({(deq_k != deq_r).sum().item()} elements differ)")
+        check(torch.equal(deq_r.cpu(), ops.ktls_dequant(
+                  kq.cpu(), amax.cpu(), impl="ref")),
+              f"ktls_dequant_ref ctx {ctx}: the card's differs from the "
+              "CPU's")
+        row = {"max_abs_err": {}, "allclose": {}}
+        for name, args in (("attention_float", (q, kv)),
+                           ("attention_int8", (q, kq, amax))):
+            got = ops.ktls_attention(*args, impl="cuda")
+            want = ops.ktls_attention(*args, impl="ref")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            row["max_abs_err"][name] = err
+            row["allclose"][name] = torch.allclose(got, want, **ATTN_TOL)
+            errs[name] = max(errs[name], err)
+            check(row["allclose"][name],
+                  f"ktls {name} ctx {ctx}: max abs error {err} against "
+                  f"the plain version is past {ATTN_TOL}")
+        del deq_k, deq_r
+        k_t = kv[:, :, 0].transpose(1, 2)
+        v_t = kv[:, :, 1].transpose(1, 2)
+        lib = sdpa(q[:, :, None], k_t, v_t, scale=1.0)[:, :, 0]
+        row["library_max_abs_err"] = (
+            lib - ops.ktls_attention(q, kv, impl="ref")).abs().max().item()
+        fns = {
+            "attention_float": lambda: ops.ktls_attention(q, kv,
+                                                          impl="cuda"),
+            "attention_int8": lambda: ops.ktls_attention(q, kq, amax,
+                                                         impl="cuda"),
+            "dequant": lambda: ops.ktls_dequant(kq, amax, impl="cuda"),
+            "sw": lambda: bench.sw_mode(q, kq, amax),
+        }
+        plain_fns = {
+            "attention_float": lambda: ops.ktls_attention(q, kv,
+                                                          impl="ref"),
+            "attention_int8": lambda: ops.ktls_attention(q, kq, amax,
+                                                         impl="ref"),
+            "dequant": lambda: ops.ktls_dequant(kq, amax, impl="ref"),
+        }
+        work = ktls_work(ctx, **shape)
+        timed = {}
+        for name, (nbytes, nops) in work.items():
+            bms, by, _ = bound(nbytes, nops, frate)
+            timed[name] = {"ms": time_ms(fns[name], torch, clean_l2=True),
+                           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                           "ops": nops}
+            if name in plain_fns:
+                timed[name]["plain_ms"] = time_ms(plain_fns[name], torch,
+                                                  clean_l2=True)
+        timed["attention_float"]["library_ms"] = time_ms(
+            lambda: sdpa(q[:, :, None], k_t, v_t, scale=1.0), torch,
+            clean_l2=True)
+        for name in ("attention_int8", "dequant"):
+            timed[name]["library_ms"] = None   # no single call does it
+        row["timing"] = timed
+        per_ctx[ctx] = row
+        del q, kv, kq, amax, k_t, v_t, lib
+        torch.cuda.empty_cache()
+
+    kktls.reset_launches()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            with contextlib.redirect_stdout(out):
+                brun.main(["--only", "fig6c_ktls", "--device", "cuda",
+                           "--out", tmp])
+        except SystemExit as exc:
+            raise SmokeError(f"fig6c_ktls: {exc}") from exc
+        torch.cuda.synchronize()
+        rows = bench_rows(Path(tmp) / "BENCH_fig6c_ktls.json")
+    launches = dict(kktls.LAUNCHES)
+    by_kv = dict(kktls.KV_LAUNCHES)
+    want_rows = [f"fig6c_ktls_ctx{c}_{m}" for c in bench.CONTEXTS
+                 for m in ("plain", "sw", "hw")]
+    for r in rows:
+        check_bench_row("fig6c_ktls", r)
+    check([r["name"] for r in rows] == want_rows,
+          f"fig6c_ktls rows {[r['name'] for r in rows]}, expected "
+          f"{want_rows}")
+    n = KTLS_BENCH_CALLS * len(bench.CONTEXTS)
+    check(launches == {"ktls_attention": 3 * n, "ktls_dequant": n}
+          and by_kv == {"float32": 2 * n, "int8": n},
+          f"fig6c_ktls launched {launches} ({by_kv}); each regime's kernel "
+          f"{n} times expected")
+    bench_us = {r["name"].split("_", 2)[2]: r["us_per_call"] for r in rows}
+    big = per_ctx[bench.CONTEXTS[-1]]["timing"]
+    order = {"bench": {k: bench_us[f"ctx{bench.CONTEXTS[-1]}_{k}"]
+                       for k in ("hw", "plain", "sw")},
+             "events": {k: big[KTLS_REGIMES[k]]["ms"]
+                        for k in ("hw", "plain", "sw")}}
+    for v in order.values():
+        v["hw_lt_plain_lt_sw"] = v["hw"] < v["plain"] < v["sw"]
+    emit({"phase": "ktls_analogue", "card": card_line(torch),
+          "shape": shape, "dequant_every_float32": exhaustive,
+          "contexts": per_ctx, "bench_us": bench_us,
+          "bench_csv": out.getvalue().splitlines(),
+          "launches": launches, "kv_launches": by_kv,
+          "order_at_largest_ctx": order})
+    return {"launches": launches, "kv_launches": by_kv, "errs": errs,
+            "timing": big, "ctx": bench.CONTEXTS[-1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: examples/proxy_serving_torch.py
+# ---------------------------------------------------------------------------
+
+#: phase 23 (b): the example's serving part with the full libra-proxy-125m
+#: (12 layers, d_model 768); its requests, batch, pages and tokens are the
+#: example's (a 4-token header and 40 payload tokens, 6 new)
+PROXY_SERVE = ServeSize(arch="libra-proxy-125m", requests=8, max_batch=4,
+                        prompt=44, header=4, gen=6, page=8)
+#: the VPIs the example prints: drawn from a per-stack random secret
+VPI_RE = r"vpi=0x[0-9a-f]+"
+VPI_MASK = "vpi=0x?"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (it puts ``src`` on the path)."""
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def proxy_serve_run(example, model, params, dev, torch, kattn,
+                    margins=None) -> dict:
+    """One ``serving_proxy`` of ``example`` on ``model``: its printed lines,
+    ``EngineStats``, ``CopyCounters``, launches and tokens. ``margins``
+    (a :class:`LogitMargins` of ``model``) notes where each token came
+    from, through ``LibraEngine.step`` (which the example's loop and
+    ``run()`` call) for the run."""
+    import contextlib
+    import io
+    import re
+    import types
+
+    from repro_torch.serving import engine as tengine
+
+    inner = tengine.LibraEngine.step
+
+    def step(eng):
+        view = types.SimpleNamespace(waiting=eng.waiting,
+                                     step=lambda: inner(eng))
+        margins.step(view, list(eng.waiting) + list(eng.active))
+
+    kattn.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        if margins is not None:
+            tengine.LibraEngine.step = step
+        with contextlib.redirect_stdout(out):
+            eng = example.serving_proxy(dev, params=params, model=model)
+        torch.cuda.synchronize()
+    finally:
+        tengine.LibraEngine.step = inner
+    dt = time.perf_counter() - t0
+    check(len(eng.pool.registry) == 0,
+          f"proxy_serving {model.attn_impl}: VPIs left registered")
+    lines = out.getvalue().splitlines()
+    return {"seconds": dt, "lines": lines,
+            "pages": {"free": eng.pool.alloc.free_pages,
+                      "total": eng.pool.alloc.total_pages},
+            "masked": [re.sub(VPI_RE, VPI_MASK, ln) for ln in lines],
+            "stats": dataclasses.asdict(eng.stats),
+            "counters": dataclasses.asdict(eng.stack.counters),
+            "launches": dict(kattn.LAUNCHES),
+            "outputs": {r.rid: list(r.output) for r in eng.completed}}
+
+
+def proxy_serving(dev, torch, np, kattn) -> dict:
+    """Phase 23: ``examples/proxy_serving_torch.py`` on the card. (a) The
+    script as a subprocess with no arguments (``cuda``): exit 0, and its
+    stream part's lines equal those ``stream_proxy("cpu")`` prints (host
+    numpy either way). (b) Its ``serving_proxy`` loop with the full
+    libra-proxy-125m, 8 requests, through the kernels (``attn_impl=
+    'auto'``) and through the plain versions (``'ref'``) on the same
+    parameters: tokens equal under phase 6's near-tie rule, ``EngineStats``,
+    ``CopyCounters``, the printed lines (the VPIs masked: each stack
+    draws its secret at random) and the free pages equal (a forwarded
+    handle's pages stay held, a fault of the reference, carried: ROADMAP
+    section 3, F6), ``flash_attention`` launched once a layer a prefill
+    and ``paged_attention`` once a layer a decode step in the kernel run,
+    neither in the plain run."""
+    import contextlib
+    import io
+
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "proxy_serving_torch.py")],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(ROOT))
+    script_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"proxy_serving_torch.py exited {res.returncode}:\n"
+          f"{res.stderr[-2000:]}")
+    example = load_example("proxy_serving_torch")
+    cpu_out = io.StringIO()
+    with contextlib.redirect_stdout(cpu_out):
+        example.stream_proxy("cpu")
+    stream_cpu = cpu_out.getvalue().splitlines()
+    card_lines = res.stdout.splitlines()
+    check(card_lines[:len(stream_cpu)] == stream_cpu,
+          "proxy_serving_torch.py: the card run's stream lines differ from "
+          f"the CPU's:\n{card_lines[:len(stream_cpu)]}\n{stream_cpu}")
+    check(sum(ln.startswith("req ") for ln in card_lines) == 8 and
+          "--- serving proxy summary ---" in card_lines,
+          "proxy_serving_torch.py: the serving part printed "
+          f"{card_lines[len(stream_cpu):]}")
+
+    ss = PROXY_SERVE
+    cfg = ss.config()
+    models = {impl: build_model(cfg, page_size=ss.page, attn_impl=impl)
+              for impl in ("auto", "ref")}
+    params = models["auto"].init_params(ss.seed, device=dev)
+    margins = LogitMargins(models["ref"])
+    kern_run = proxy_serve_run(example, models["auto"], params, dev, torch,
+                               kattn)
+    ref_run = proxy_serve_run(example, models["ref"], params, dev, torch,
+                              kattn, margins)
+    check(sorted(kern_run["outputs"]) == list(range(1, ss.requests + 1)),
+          f"proxy_serving: completed {sorted(kern_run['outputs'])}")
+    diverged = near_tie_diverged(ss, kern_run["outputs"],
+                                 ref_run["outputs"], margins,
+                                 "proxy_serving kernel vs plain")
+    for k in ("stats", "counters", "masked", "pages"):
+        check(kern_run[k] == ref_run[k],
+              f"proxy_serving: {k} differ between the kernel and plain "
+              f"runs:\n{kern_run[k]}\n{ref_run[k]}")
+    st = kern_run["stats"]
+    want = {"flash_attention": cfg.num_layers * st["prefills"],
+            "paged_attention": cfg.num_layers * st["steps"]}
+    check(kern_run["launches"] == want,
+          f"proxy_serving: launched {kern_run['launches']}, expected {want}")
+    check(not any(ref_run["launches"].values()),
+          f"proxy_serving: the plain run launched {ref_run['launches']}")
+    entry = {"phase": "proxy_serving", "script_seconds": script_s,
+             "script_stdout": card_lines, "arch": ss.arch,
+             "params": cfg.param_count(), "layers": cfg.num_layers,
+             "d_model": cfg.d_model, "requests": ss.requests,
+             "identical_tokens": not diverged, "diverged": diverged,
+             "stats": st, "counters": kern_run["counters"],
+             "pages": kern_run["pages"], "launches": kern_run["launches"],
+             "seconds": {"kernels": kern_run["seconds"],
+                         "plain": ref_run["seconds"]},
+             "lines": kern_run["lines"]}
+    emit(entry)
+    return entry
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SmokeError("src/repro_torch not found next to chip_smoke.py: "
@@ -4934,6 +5327,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ktls_attention as kktls
     from repro_torch.kernels import mlstm_scan as kmlstm
     from repro_torch.kernels import selective_copy as kern
     from repro_torch.kernels import testing as tt
@@ -5021,6 +5415,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train", train_phase, dev, torch, np)
     timed("mesh", mesh_phase, dev, torch, np)
+    ktls = timed("ktls_analogue", ktls_analogue, dev, torch, np, ops, kktls)
+    timed("proxy_serving", proxy_serving, dev, torch, np, kattn)
     emit({"phase_seconds": phase_s})
 
     print(card_line(torch), flush=True)
@@ -5069,6 +5465,29 @@ def main() -> int:
         })
         if "fp32_fma_bound_ms" in first:
             kernels[-1]["fp32_fma_bound_ms"] = first["fp32_fma_bound_ms"]
+    row_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, timing_key, extra in (
+            ("ktls_attention", "attention_float",
+             {"kv_launches": ktls["kv_launches"],
+              "int8": {k: ktls["timing"]["attention_int8"][k]
+                       for k in row_keys}}),
+            ("ktls_dequant", "dequant", {})):
+        t = ktls["timing"][timing_key]
+        launches = ktls["launches"][name]
+        check(launches > 0, f"{name} never launched on the main path")
+        err = (max(ktls["errs"]["attention_float"],
+                   ktls["errs"]["attention_int8"])
+               if name == "ktls_attention" else ktls["errs"]["dequant"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ktls_attention.cu",
+            "replaces": KTLS_REPLACES, "launches": launches,
+            "max_abs_err": err, **{k: t[k] for k in row_keys},
+            "variant": f"fig6c_ktls ctx {ktls['ctx']}, B=8, 12 heads of 64"
+                       + (", float32 K/V" if name == "ktls_attention"
+                          else ""),
+            **extra,
+        })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

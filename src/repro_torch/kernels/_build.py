@@ -47,6 +47,8 @@ SIGNATURES = {
     "libra_paged_attention": [_P] * 8 + [_I] * 7 + [_P],
     "libra_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "libra_mlstm_scan": [_P] * 9 + [_I] * 4 + [_P],
+    "libra_ktls_attention": [_P] * 4 + [_I] * 6 + [_P],
+    "libra_ktls_dequant": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

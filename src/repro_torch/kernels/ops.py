@@ -8,7 +8,8 @@ mean the same in both:
 ``'ref'``  the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 ``'cuda'`` the CUDA kernel (:mod:`repro_torch.kernels.selective_copy`,
            :mod:`repro_torch.kernels.attention`,
-           :mod:`repro_torch.kernels.mlstm_scan`); raises for a tensor
+           :mod:`repro_torch.kernels.mlstm_scan`,
+           :mod:`repro_torch.kernels.ktls_attention`); raises for a tensor
            that is not on a CUDA device
 ``'auto'`` the kernel for CUDA tensors, the plain version for CPU tensors
 ========== ===============================================================
@@ -35,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import attention as _attn
+from repro_torch.kernels import ktls_attention as _ktls
 from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_copy as _k
@@ -94,6 +96,25 @@ def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,
                                      window=window)
     return _ref.paged_attention_ref(q, pool, tables, page_pos, seq_lens,
                                     window=window)
+
+
+def ktls_attention(q, kv, amax=None, *, impl="auto") -> torch.Tensor:
+    """The kTLS-analogue bench's decode attention ``softmax(q k^T) v`` of
+    ``q [B, Hq, hd]`` over every key of ``kv [B, ctx, 2, Hkv, hd]``, no
+    scale, no mask; int8 ``kv`` with ``amax [B, ctx, 2, Hkv, 1]`` is
+    dequantised inside the kernel's read."""
+    if resolve(impl, q) == "cuda":
+        forward_only("ktls_attention", q, kv)
+        return _ktls.ktls_attention(q, kv, amax)
+    return _ref.ktls_attention_ref(q, kv, amax)
+
+
+def ktls_dequant(kq, amax, *, impl="auto") -> torch.Tensor:
+    """``float(kq) * amax / 127`` into a new float32 tensor: the bench's
+    separate dequantise pass."""
+    if resolve(impl, kq) == "cuda":
+        return _ktls.ktls_dequant(kq, amax)
+    return _ref.ktls_dequant_ref(kq, amax)
 
 
 def mlstm_scan(q, k, v, log_i, log_f, *, chunk=64, impl="auto",

@@ -1,4 +1,4 @@
-"""Plain-PyTorch versions of the seven kernels (the contract).
+"""Plain-PyTorch versions of the kernels (the contract).
 
 Each function states the semantics its CUDA kernel in ``csrc/`` reproduces
 and mirrors the jnp oracle of the same name in the JAX package line for
@@ -7,7 +7,10 @@ them on the card. The four datapath kernels are int32 and bit-identical to
 these; the two attention kernels are float32 and agree to rounding
 (``atol = rtol = 1e-4``, the JAX package's bar), and so does the mLSTM
 scan (``atol = rtol = 5e-4``, 3e-3 at gate extremes, as the JAX package's
-tests hold its Pallas kernel).
+tests hold its Pallas kernel). The kTLS-analogue bench's two kernels
+mirror the bench's formulas (``benchmarks/bench_ktls_analogue.py``; no
+Pallas kernel): the dequantise pass bit for bit, its attention to
+``1e-4``.
 
 Differences of idiom from the jnp oracles of the datapath:
 
@@ -92,6 +95,36 @@ def paged_attention_ref(q: torch.Tensor, pool: torch.Tensor,
     l = p.sum(dim=-1)
     acc = torch.einsum("bhgt,bthd->bhgd", p, vv.float())
     return acc.reshape(b, hq, hd), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def ktls_dequant_ref(q: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """``float(q) * amax / 127`` of int8 ``q [..., hd]`` and ``amax [...,
+    1]``, in float32: the JAX package's ``_dequant``
+    (``benchmarks/bench_ktls_analogue.py:29``) in its order of operations.
+    The divisor is a one-element tensor on ``q``'s device: torch divides a
+    CUDA tensor by a Python scalar as a product with the scalar's float32
+    reciprocal, which rounds otherwise than the division that the kernel,
+    the CPU and the JAX package's eager ``_dequant`` compute."""
+    return q.float() * amax / amax.new_full((1,), 127.0)
+
+
+def ktls_attention_ref(q: torch.Tensor, kv: torch.Tensor,
+                       amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``softmax(q k^T) v`` of ``q [B, Hq, hd]`` over every key of ``kv
+    [B, ctx, 2, Hkv, hd]`` (K at index 0 of the third axis, V at 1), with
+    no ``1/sqrt(hd)`` scale and no mask, as the kTLS-analogue bench
+    attends; query head ``h`` reads KV head ``h // (Hq // Hkv)``. With
+    ``amax [B, ctx, 2, Hkv, 1]``, ``kv`` is int8 and dequantised first
+    (:func:`ktls_dequant_ref`). Float32."""
+    if amax is not None:
+        kv = ktls_dequant_ref(kv, amax)
+    b, hq, hd = q.shape
+    hkv = kv.shape[3]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, kv[:, :, 0])
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgt,bthd->bhgd", p, kv[:, :, 1])
+    return o.reshape(b, hq, hd)
 
 
 def _meta_block(stream: torch.Tensor, meta_len: torch.Tensor,

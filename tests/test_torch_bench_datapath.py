@@ -10,8 +10,9 @@ package's (``benchmarks/``), on the CPU at the smoke sizes.
 * Every ``assert`` of a reference bench (gates and identity checks) is in
   its port, as the same expression.
 * No file under ``benchmarks_torch/``, no module of ``src/repro_torch/``,
-  ``chip_smoke.py`` and the port's scripts imports ``repro``, ``jax`` or
-  ``benchmarks``.
+  ``chip_smoke.py``, and none of the port's examples and scripts
+  (``examples/*_torch.py``, ``scripts/*_torch.py``) imports ``repro``,
+  ``jax`` or ``benchmarks``.
 * ``common.untimed``, ``common.DEPLOYMENT`` and ``run.py``: what a bench
   that raises leaves, and that a bench asked for ``cuda`` without a card
   raises.
@@ -43,15 +44,13 @@ def _asserts(path: Path) -> set:
             if isinstance(n, ast.Assert)}
 
 
-REF_BENCHES = sorted(p.name for p in (ROOT / "benchmarks").glob("bench_*.py")
-                     if p.name != "bench_ktls_analogue.py")
+REF_BENCHES = sorted(p.name for p in (ROOT / "benchmarks").glob("bench_*.py"))
 
 
 @pytest.mark.parametrize("name", REF_BENCHES)
 def test_every_reference_assert_is_carried(name):
-    """Each bench of ``benchmarks/`` (but the attention microbenchmark,
-    not ported yet) has its port, holding every gate and identity check
-    of the reference as the same expression."""
+    """Each bench of ``benchmarks/`` has its port, holding every gate and
+    identity check of the reference as the same expression."""
     port = ROOT / "benchmarks_torch" / name
     assert port.exists(), f"{name} has no port"
     missing = _asserts(ROOT / "benchmarks" / name) - _asserts(port)
@@ -69,17 +68,16 @@ def test_the_runner_lists_the_references_benches():
                 for e in node.value.elts]
     for name, port in (("BENCHES", run.BENCHES),
                        ("SMOKE_BENCHES", run.SMOKE_BENCHES)):
-        want = [(n, m) for n, m in lists[name] if n != "fig6c_ktls"]
-        assert [(n, m.split(".")[1]) for n, m in port] == want
+        assert [(n, m.split(".")[1]) for n, m in port] == lists[name]
         assert all(m.startswith("benchmarks_torch.") for _n, m in port)
 
 
 PORT_FILES = sorted(
     [*(ROOT / "benchmarks_torch").glob("*.py"),
      *(ROOT / "src" / "repro_torch").rglob("*.py"),
-     ROOT / "chip_smoke.py",
-     ROOT / "scripts" / "check_bench_trend_torch.py",
-     ROOT / "scripts" / "check_failover_recovery_torch.py"])
+     *(ROOT / "examples").glob("*_torch.py"),
+     *(ROOT / "scripts").glob("*_torch.py"),
+     ROOT / "chip_smoke.py"])
 
 
 def _imported(path: Path) -> set:
@@ -106,6 +104,7 @@ def test_untimed_drops_the_clock_and_keeps_the_counts():
            "xfer_device_rounds": 4, "anchored": 7, "counters_match": True,
            "derived": "msgs_per_s=12 rounds=9 round_us=3.1 impl=ref "
                       "counters_match=True launches_12_to_7 tok/s=4.0 "
+                      "slowdown_vs_plain=2.84 "
                       "rx_copied=15tok of 2063 (0.0073)"}
     assert common.untimed(row) == {
         "name": "x", "xfer_device_rounds": 4, "anchored": 7,
