@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.common.sharding import constrain, gather_fsdp, use_mesh
+from repro_torch.common.tracing import span
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
@@ -484,7 +485,7 @@ class TransformerLM:
         if (ssm_state is not None) != hybrid:
             raise ValueError(f"{c.name}: ssm_state is for the hybrid "
                              "family's decode step, and it needs one")
-        with use_mesh(mesh):
+        with span("model.decode_step"), use_mesh(mesh):
             x = embed_lookup(params["embed"], tokens)     # [B, D]
             b = x.shape[0]
             mesh_kw = dict(mesh=mesh, batch_axis=batch_axis,
@@ -553,7 +554,7 @@ class TransformerLM:
         position: ``seq_lens`` there is ``img_tokens + text_len + i`` for
         the ``i``-th step, so that they read the image's anchored pages
         and each token's K/V lands past them."""
-        with use_mesh(mesh):
+        with span("model.prefill"), use_mesh(mesh):
             return self._prefill(params, tokens, seq_lens, pool, tables,
                                  token_shard, token_slot, token_off,
                                  token_valid, img_embeds, mesh, batch_axis,

@@ -28,6 +28,14 @@ place of donation). ``device`` is ``"cuda"`` by default and raises without
 a GPU; tests pass ``"cpu"``. The baselines write a prefilled request's KV
 into its cache slot in place, where the JAX engines make a new cache with
 ``.at[].set`` (the stats count neither).
+
+While tracing is on (``common/tracing.py``), ``LibraEngine.step`` records
+a span of each step and of its phases: ``engine.admit``, ``engine.prefill``
+(counters ``tokens``, the prompts' real tokens, and ``slots``, the group
+times its padded width) and ``engine.decode``, each of the last two split
+into ``engine.prepare`` (host arrays), ``engine.upload`` (their copies to
+the device), the model's call, ``engine.wait`` (the sampled ids' download)
+and ``engine.finish`` (tokens, completions, releases).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.tracing import span
 from repro_torch.core.anchor_pool import PoolExhausted
 from repro_torch.core.parser import TokenStreamParser
 from repro_torch.core.stack import LibraStack
@@ -186,43 +195,75 @@ class LibraEngine(_EngineBase):
                 for k, shape in model.ssm_state_shapes(max_batch).items()}
 
     # -- ingress (prefill anchors the payload) -------------------------------
-    def _prefill_group(self, group: List[Request]) -> None:
+    def _prefill_width(self, group: List[Request]) -> int:
+        """The group's prompts are padded to the longest, in whole pages."""
         s = max(len(r.prompt) for r in group)
-        s = max(self.page_size, -(-s // self.page_size) * self.page_size)
-        handles = [r.handle for r in group]  # allocated at admission
-        tokens = np.stack([_pad_to(r.prompt, s) for r in group])
-        seq_lens = np.array([len(r.prompt) for r in group], np.int32)
-        tables, _ = self.pool.batch_tables(handles, self.pps)
-        tsh, tsl, toff, tval = self.pool.token_coords(handles, s)
+        return max(self.page_size, -(-s // self.page_size) * self.page_size)
 
-        first = self.model.prefill(
-            self.params, self._dev(tokens), self._dev(seq_lens),
-            self.pool.pool, self._dev(tables), self._dev(tsh),
-            self._dev(tsl), self._dev(toff), self._dev(tval))
-        first = first.cpu().numpy()
-        now = time.perf_counter()
-        for i, r in enumerate(group):
-            r.output.append(int(first[i]))
-            r.first_token_at = now
-        # stats: selective copy — tokens up, ONLY sampled ids down
-        self.stats.h2d_bytes += tokens.nbytes + tables.nbytes + tsh.nbytes * 3
-        self.stats.d2h_bytes += first.nbytes
-        self.stats.d2h_calls += 1
-        # in Python ints: the JAX engine's int32 product wraps past 2 GiB
-        self.stats.anchored_bytes += (int(seq_lens.sum())
-                                      * self._kv_bytes_per_token())
-        self.stats.prefills += 1
-        self.stats.alloc_events += len(group)
+    def _prefill_group(self, group: List[Request]) -> None:
+        """Prefill the admitted ``group`` together; a request whose first
+        token is its last completes here."""
+        with span("engine.prepare"):
+            s = self._prefill_width(group)
+            handles = [r.handle for r in group]  # allocated at admission
+            tokens = np.stack([_pad_to(r.prompt, s) for r in group])
+            seq_lens = np.array([len(r.prompt) for r in group], np.int32)
+            tables, _ = self.pool.batch_tables(handles, self.pps)
+            tsh, tsl, toff, tval = self.pool.token_coords(handles, s)
+        with span("engine.upload"):
+            dev = [self._dev(a) for a in (tokens, seq_lens, tables, tsh, tsl,
+                                          toff, tval)]
+        first = self.model.prefill(self.params, *dev[:2], self.pool.pool,
+                                   *dev[2:])
+        with span("engine.wait"):
+            first = first.cpu().numpy()
+        with span("engine.finish"):
+            now = time.perf_counter()
+            for i, r in enumerate(group):
+                r.output.append(int(first[i]))
+                r.first_token_at = now
+            # stats: selective copy — tokens up, ONLY sampled ids down
+            self.stats.h2d_bytes += (tokens.nbytes + tables.nbytes
+                                     + tsh.nbytes * 3)
+            self.stats.d2h_bytes += first.nbytes
+            self.stats.d2h_calls += 1
+            # in Python ints: the JAX engine's int32 product wraps past 2 GiB
+            self.stats.anchored_bytes += (int(seq_lens.sum())
+                                          * self._kv_bytes_per_token())
+            self.stats.prefills += 1
+            self.stats.alloc_events += len(group)
+            now = time.perf_counter()
+            for r in group:  # gen=1 requests complete at prefill
+                if r.done:
+                    r.done_at = now
+                    self.pool.release(r.handle)
+                    self.completed.append(r)
+                    self.stats.completed += 1
+                else:
+                    self.active.append(r)
 
     def _kv_bytes_per_token(self) -> int:
         c = self.cfg
         return c.num_layers * 2 * c.num_kv_heads * c.head_dim * 4
 
     def step(self) -> None:
-        # each engine step advances the stack clock: deferred teardowns from
-        # closed connections expire on the engine's cadence (§A.4)
-        self.stack.tick()
-        # admit
+        with span("engine.step"):
+            # each engine step advances the stack clock: deferred teardowns
+            # from closed connections expire on the engine's cadence (§A.4)
+            self.stack.tick()
+            with span("engine.admit"):
+                group = self._admit()
+            if group:
+                with span("engine.prefill",
+                          tokens=sum(len(r.prompt) for r in group),
+                          slots=len(group) * self._prefill_width(group)):
+                    self._prefill_group(group)
+            if self.active:
+                with span("engine.decode"):
+                    self._decode()
+
+    def _admit(self) -> List[Request]:
+        """Anchor waiting requests, in order, while slots and pages last."""
         free = self.max_batch - len(self.active)
         group = []
         while self.waiting and free > 0:
@@ -242,64 +283,59 @@ class LibraEngine(_EngineBase):
             self.waiting.pop(0)
             group.append(r)
             free -= 1
-        if group:
-            self._prefill_group(group)
+        return group
+
+    def _decode(self) -> None:
+        """Decode one token for every active request."""
+        with span("engine.prepare"):
+            b = self.max_batch
+            handles = []
+            seq_lens = np.zeros(b, np.int32)
+            tokens = np.zeros(b, np.int32)
+            for i, r in enumerate(self.active):
+                r.slot = i
+                pos = len(r.prompt) + len(r.output) - 1
+                self.pool.extend(r.handle, pos + 1)
+                handles.append(r.handle)
+                seq_lens[i] = pos
+                tokens[i] = r.output[-1]
+            # inactive slots park on a scratch page
+            parking = SeqHandle(0, [self._parking], 0, 0)
+            while len(handles) < b:
+                handles.append(parking)
+            tables, page_pos = self.pool.batch_tables(handles, self.pps)
+            wsh, wsl = self.pool.write_coords(handles, seq_lens.tolist())
+        with span("engine.upload"):
+            dev = [self._dev(a) for a in (tokens, seq_lens, tables, page_pos,
+                                          wsh, wsl)]
+        next_tokens = self.model.decode_step(self.params, *dev[:2],
+                                             self.pool.pool, *dev[2:],
+                                             ssm_state=self.ssm_state)
+        with span("engine.wait"):
+            next_tokens = next_tokens.cpu().numpy()
+
+        with span("engine.finish"):
+            self.stats.h2d_bytes += (tokens.nbytes + seq_lens.nbytes
+                                     + tables.nbytes + page_pos.nbytes
+                                     + wsh.nbytes + wsl.nbytes)
+            self.stats.d2h_bytes += next_tokens.nbytes
+            self.stats.d2h_calls += 1
+            self.stats.anchored_bytes += (len(self.active)
+                                          * self._kv_bytes_per_token())
+            self.stats.steps += 1
+
             now = time.perf_counter()
-            for r in group:  # gen=1 requests complete at prefill
+            still = []
+            for r in self.active:
+                r.output.append(int(next_tokens[r.slot]))
                 if r.done:
                     r.done_at = now
                     self.pool.release(r.handle)
                     self.completed.append(r)
                     self.stats.completed += 1
                 else:
-                    self.active.append(r)
-        if not self.active:
-            return
-
-        # decode one token for every active request
-        b = self.max_batch
-        handles = []
-        seq_lens = np.zeros(b, np.int32)
-        tokens = np.zeros(b, np.int32)
-        for i, r in enumerate(self.active):
-            r.slot = i
-            pos = len(r.prompt) + len(r.output) - 1
-            self.pool.extend(r.handle, pos + 1)
-            handles.append(r.handle)
-            seq_lens[i] = pos
-            tokens[i] = r.output[-1]
-        # inactive slots park on a scratch page
-        parking = SeqHandle(0, [self._parking], 0, 0)
-        while len(handles) < b:
-            handles.append(parking)
-        tables, page_pos = self.pool.batch_tables(handles, self.pps)
-        wsh, wsl = self.pool.write_coords(handles, seq_lens.tolist())
-
-        next_tokens = self.model.decode_step(
-            self.params, self._dev(tokens), self._dev(seq_lens),
-            self.pool.pool, self._dev(tables), self._dev(page_pos),
-            self._dev(wsh), self._dev(wsl), ssm_state=self.ssm_state)
-        next_tokens = next_tokens.cpu().numpy()
-
-        self.stats.h2d_bytes += (tokens.nbytes + seq_lens.nbytes + tables.nbytes
-                                 + page_pos.nbytes + wsh.nbytes + wsl.nbytes)
-        self.stats.d2h_bytes += next_tokens.nbytes
-        self.stats.d2h_calls += 1
-        self.stats.anchored_bytes += len(self.active) * self._kv_bytes_per_token()
-        self.stats.steps += 1
-
-        now = time.perf_counter()
-        still = []
-        for r in self.active:
-            r.output.append(int(next_tokens[r.slot]))
-            if r.done:
-                r.done_at = now
-                self.pool.release(r.handle)
-                self.completed.append(r)
-                self.stats.completed += 1
-            else:
-                still.append(r)
-        self.active = still
+                    still.append(r)
+            self.active = still
 
     # -- egress: zero-copy forwarding (VPI handoff) ---------------------------
     def forward_handle(self, r: Request) -> SeqHandle:
