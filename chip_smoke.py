@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
-seven TPU kernels' and the kTLS-analogue bench's two, eight sources) into
+seven TPU kernels', the kTLS-analogue bench's two and the prefill's
+float32 product, nine sources) into
 ``build/kernels/`` (one ``nvcc`` per source, all at once) and then runs
 the 23 phases below, in order but where a phase says when it runs:
 
@@ -392,6 +393,13 @@ sources can bring their own. The modes compile with ``-I
 src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
 shared headers, and print each build's ``ptxas -v`` and
 SASS opcode mix of its run-shape instantiation.
+
+``python3 chip_smoke.py --linear`` runs only the prefill projections'
+kernel (``csrc/linear_f32.cu``, no TPU kernel): the build's ``ptxas -v``
+report, then at phi4-mini-3.8b's seven projection shapes with 4096 rows
+its largest error from a float64 product beside ``torch.matmul``'s (it
+must stay within 4x), and both medians under both flushes beside the
+split-TF32 bound; hymba's ragged widths for the error only.
 """
 from __future__ import annotations
 
@@ -3916,6 +3924,57 @@ def ab_report(phase, label, bounds, times, passed, torch, **extra) -> int:
     return 0 if all(passed.values()) else 1
 
 
+#: phi4-mini-3.8b's per-layer projections (name, K, N), which the prefill
+#: takes through ``ops.linear_f32``, and hymba's ragged widths
+LINEAR_SHAPES = (("wq", 3072, 3072), ("wk", 3072, 1024), ("wv", 3072, 1024),
+                 ("wo", 3072, 3072), ("w_gate", 3072, 8192),
+                 ("w_up", 3072, 8192), ("w_down", 8192, 3072))
+LINEAR_RAGGED = (("hymba_wq", 1600, 1600), ("hymba_wk", 1600, 320))
+LINEAR_ROWS = 4096
+
+
+def linear(dev, torch, ops, _build) -> int:
+    """The prefill projections' kernel alone: built with the ``ptxas``
+    report, then at each of ``LINEAR_SHAPES`` with ``LINEAR_ROWS`` rows
+    (x ~ N(0, 1), w ~ N(0, 1 / K), as the benchmark draws them) its error
+    from a float64 product beside ``torch.matmul``'s (the plain version,
+    which is also the library call), and both medians under both flushes
+    beside the split-TF32 bound (three TF32 products at the card's TF32
+    rate) and the float32-FMA one; the ragged shapes for their error."""
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(35)
+    rows_out, ok = [], True
+    for name, k, n in LINEAR_SHAPES + LINEAR_RAGGED:
+        x = torch.randn((LINEAR_ROWS, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        want = x.double() @ w.double()
+        err = (ops.linear_f32(x, w).double() - want).abs().max().item()
+        lib_err = (torch.matmul(x, w).double() - want).abs().max().item()
+        row = {"shape": name, "rows": LINEAR_ROWS, "k": k, "n": n,
+               "max_abs_err": err, "matmul_max_abs_err": lib_err}
+        ok = ok and err <= 4 * lib_err
+        if (name, k, n) in LINEAR_SHAPES:
+            flops = 2 * LINEAR_ROWS * k * n
+            nbytes = 4 * (LINEAR_ROWS * k + k * n + LINEAR_ROWS * n)
+            kern = both_flushes(lambda: ops.linear_f32(x, w, impl="cuda"),
+                                torch)
+            lib = both_flushes(lambda: torch.matmul(x, w), torch)
+            row.update(tf32_bounds(nbytes, flops, torch), ms=kern,
+                       library_ms=lib,
+                       tflops=flops / kern["dirty_l2"] / 1e9,
+                       library_tflops=flops / lib["dirty_l2"] / 1e9)
+        emit(row)
+        rows_out.append(row)
+        del x, w, want
+    emit({"phase": "linear", "card": card_line(torch),
+          "runs_per_time": TIMED_RUNS, "within_4x_matmul": ok,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    return 0 if ok else 1
+
+
 def mlstm_ab(paths, dev, torch, np, ops, _build, serve=False) -> int:
     """Phase 7 and the run-shape timing through each build of the mLSTM
     scan; with ``serve``, phase 8 too."""
@@ -5334,6 +5393,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--linear"]:
+        return linear(dev, torch, ops, _build)
     if sys.argv[1:2] == ["--mlstm-ab"]:
         with_serve = sys.argv[2:3] == ["--serve"]
         srcs = sys.argv[2 + with_serve:]

@@ -49,6 +49,7 @@ SIGNATURES = {
     "libra_mlstm_scan": [_P] * 9 + [_I] * 4 + [_P],
     "libra_ktls_attention": [_P] * 4 + [_I] * 6 + [_P],
     "libra_ktls_dequant": [_P] * 3 + [_I] * 2 + [_P],
+    "libra_linear_f32": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

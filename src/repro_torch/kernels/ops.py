@@ -5,11 +5,13 @@ The ``impl`` strings read as in the JAX package, so the stack's
 mean the same in both:
 
 ========== ===============================================================
-``'ref'``  the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
+``'ref'``  the plain PyTorch version (:mod:`repro_torch.kernels.ref`;
+           ``linear_f32``'s is ``torch.matmul``)
 ``'cuda'`` the CUDA kernel (:mod:`repro_torch.kernels.selective_copy`,
            :mod:`repro_torch.kernels.attention`,
            :mod:`repro_torch.kernels.mlstm_scan`,
-           :mod:`repro_torch.kernels.ktls_attention`); raises for a tensor
+           :mod:`repro_torch.kernels.ktls_attention`,
+           :mod:`repro_torch.kernels.linear_f32`); raises for a tensor
            that is not on a CUDA device
 ``'auto'`` the kernel for CUDA tensors, the plain version for CPU tensors
 ========== ===============================================================
@@ -19,11 +21,12 @@ mean the same in both:
 ``'auto'``, and a failed kernel launch raises: there is no fallback.
 
 The attention and mLSTM kernels are forward only, as the Pallas kernels
-are: on the ``'cuda'`` route they raise ``RuntimeError`` when gradients
-are enabled and an input requires them, before any other check, so that
-a gradient never vanishes in silence. Training differentiates the
-models' plain functions (``models.attention.dense_or_blockwise``,
-``models.ssm.mlstm_cell_chunked``) instead.
+are, and so is ``linear_f32``: on the ``'cuda'`` route they raise
+``RuntimeError`` when gradients are enabled and an input requires them,
+before any other check, so that a gradient never vanishes in silence.
+Training differentiates the models' plain functions
+(``models.attention.dense_or_blockwise``, ``models.ssm.mlstm_cell_chunked``)
+instead.
 
 The pool is updated in place by both impls (the kernels write it, the
 plain version uses ``index_put_``), so ``donate_pool`` is accepted for
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import ktls_attention as _ktls
+from repro_torch.kernels import linear_f32 as _lin
 from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_copy as _k
@@ -82,6 +86,16 @@ def flash_attention(q, k, v, *, causal=True, window=0,
         forward_only("flash_attention", q, k, v)
         return _attn.flash_attention(q, k, v, causal=causal, window=window)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def linear_f32(x, w, *, impl="auto") -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` in float32: the split-TF32 tensor-core
+    kernel (the prefill's projections), or as plain version
+    ``torch.matmul``, the library's float32 product (TF32 off)."""
+    if resolve(impl, x) == "cuda":
+        forward_only("linear_f32", x, w)
+        return _lin.linear_f32(x, w)
+    return torch.matmul(x, w)
 
 
 def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,

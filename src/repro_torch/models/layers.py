@@ -246,12 +246,14 @@ def mlp_template(d_model: int, d_ff: int, act: str) -> Template:
     }
 
 
-def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, act: str,
+              mm=torch.matmul) -> torch.Tensor:
+    """The FFN of ``x``, its products taken by ``mm``."""
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
-    h = gelu(x @ p["w_up"] + p["b_up"])
-    return h @ p["w_down"] + p["b_down"]
+        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
+        return mm(h, p["w_down"])
+    h = gelu(mm(x, p["w_up"]) + p["b_up"])
+    return mm(h, p["w_down"]) + p["b_down"]
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

@@ -22,10 +22,18 @@ standard-stack baseline of the other engines is ``prefill_dense`` (the
 prompt's KV as a contiguous cache, its attention through
 ``ops.flash_attention`` too) and ``decode_step_dense`` (the whole cache
 rewritten every step unless donated, full logits out). Parameters are the
-JAX package's nested dict, layers stacked on a leading axis; the large
-products stay ``torch.matmul``, as they are plain XLA dots there. Layers
-run in a Python loop (the JAX package scans them). Serving computes in
-float32.
+JAX package's nested dict, layers stacked on a leading axis. Layers run in
+a Python loop (the JAX package scans them). Serving computes in float32.
+
+The large products are plain XLA dots in the JAX package. Here the
+prefill's per-layer projections (``wq``, ``wk``, ``wv``, ``wo`` and a dense
+FFN's products, in ``prefill`` and ``prefill_dense``) go to
+``ops.linear_f32``: on CUDA tensors a split-TF32 tensor-core kernel of
+float32 accuracy, which the float32 configurations leave to the CUDA cores
+otherwise; on the CPU ``torch.matmul``. The others stay ``torch.matmul``:
+the decode steps' (host-bound, see PERF.md), the heads, training's
+(bfloat16), the MoE experts', the Mamba mixer's, the image projection's,
+and every product over a mesh (DTensors).
 
 Training (:meth:`TransformerLM.forward`, :meth:`TransformerLM.loss_fn`)
 follows the reference's training form: every parameter cast to
@@ -51,6 +59,7 @@ The ``encdec`` family is ``models/encdec.EncDecModel``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -58,7 +67,7 @@ import torch
 from repro_torch.common.sharding import constrain, gather_fsdp, use_mesh
 from repro_torch.common.tracing import span
 from repro_torch.common.types import ModelConfig
-from repro_torch.kernels.ops import IMPLS
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -142,15 +151,16 @@ class TransformerLM:
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: TransformerLM serves the families "
                              f"{FAMILIES}, not {cfg.family!r}")
-        if attn_impl not in IMPLS:
+        if attn_impl not in ops.IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
-                             f"one of {IMPLS})")
+                             f"one of {ops.IMPLS})")
         self.cfg = cfg
         self.page_size = page_size
         #: each layer's attention window (0 = global)
         self.windows = layer_windows(cfg)
-        #: ``ops`` impl of the attention kernels: 'auto' runs the CUDA
-        #: kernels on CUDA tensors, 'ref' the plain versions anywhere
+        #: ``ops`` impl of the attention kernels and of the prefill's
+        #: projections (``linear_f32``): 'auto' runs the CUDA kernels on
+        #: CUDA tensors, 'ref' the plain versions anywhere
         self.attn_impl = attn_impl
 
     # ------------------------------------------------------------------
@@ -267,14 +277,15 @@ class TransformerLM:
             out = constrain(out, ("batch", None, "vocab"))
         return out
 
-    def _qkv(self, lp, h: torch.Tensor, positions: torch.Tensor):
+    def _qkv(self, lp, h: torch.Tensor, positions: torch.Tensor,
+             mm=torch.matmul):
         """Projections of the normed input h [..., D] into q [..., Hq, hd]
-        and k, v [..., Hkv, hd], with qk-norm and RoPE at ``positions``
-        (shaped like ``h`` without its last dim)."""
+        and k, v [..., Hkv, hd] by the product ``mm``, with qk-norm and
+        RoPE at ``positions`` (shaped like ``h`` without its last dim)."""
         c = self.cfg
-        q = split_heads(h @ lp["wq"], c.num_heads, c.head_dim)
-        k = split_heads(h @ lp["wk"], c.num_kv_heads, c.head_dim)
-        v = split_heads(h @ lp["wv"], c.num_kv_heads, c.head_dim)
+        q = split_heads(mm(h, lp["wq"]), c.num_heads, c.head_dim)
+        k = split_heads(mm(h, lp["wk"]), c.num_kv_heads, c.head_dim)
+        v = split_heads(mm(h, lp["wv"]), c.num_kv_heads, c.head_dim)
         if c.qk_norm:
             q = rms_norm(q, lp["q_norm"], c.norm_eps)
             k = rms_norm(k, lp["k_norm"], c.norm_eps)
@@ -308,13 +319,14 @@ class TransformerLM:
         return x + mixed * c.residual_scale
 
     def _mlp_residual(self, lp, x: torch.Tensor,
-                      capacity_factor: float = SERVE_CAPACITY_FACTOR
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      capacity_factor: float = SERVE_CAPACITY_FACTOR,
+                      mm=torch.matmul) -> Tuple[torch.Tensor, torch.Tensor]:
         """The FFN block over x [..., D]: ``(x + its output, aux)``, ``aux``
         the MoE load-balancing loss (a float32 zero under a dense FFN). A
         ``moe`` layer routes all of x's rows in one call, as every path of
         the reference does (capacity is per call, so the rows decide each
-        other's drops)."""
+        other's drops), with its own products; a dense FFN's products are
+        ``mm``."""
         c = self.cfg
         h2 = rms_norm(x, lp["ln2"], c.norm_eps)
         if c.family == "moe":
@@ -323,7 +335,7 @@ class TransformerLM:
                 capacity_factor=capacity_factor, return_aux=True)
             out = out.reshape(x.shape)
         else:
-            out = mlp_apply(lp["mlp"], h2, c.act)
+            out = mlp_apply(lp["mlp"], h2, c.act, mm)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + out * c.residual_scale, aux
 
@@ -560,10 +572,20 @@ class TransformerLM:
                                  token_valid, img_embeds, mesh, batch_axis,
                                  combine_axes, tp_size)
 
+    def _prefill_mm(self, mesh=None):
+        """The product of the prefill's per-layer projections:
+        ``ops.linear_f32`` at ``attn_impl`` (the split-TF32 kernel on CUDA
+        tensors), or ``torch.matmul`` over a mesh, whose DTensors the
+        kernel does not take."""
+        if mesh is not None:
+            return torch.matmul
+        return functools.partial(ops.linear_f32, impl=self.attn_impl)
+
     def _prefill(self, params, tokens, seq_lens, pool, tables, token_shard,
                  token_slot, token_off, token_valid, img_embeds, mesh,
                  batch_axis, combine_axes, tp_size: int) -> torch.Tensor:
         c = self.cfg
+        mm = self._prefill_mm(mesh)
         head_sharded = c.num_heads % max(tp_size, 1) == 0
         x = self.embed(params, tokens, img_embeds)              # [B, S, D]
         b, s, _ = x.shape
@@ -577,7 +599,7 @@ class TransformerLM:
         for li in range(c.num_layers):
             lp = layer_params(params, li)
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._constrain_qkv(*self._qkv(lp, h, positions),
+            q, k, v = self._constrain_qkv(*self._qkv(lp, h, positions, mm),
                                           head_sharded)
             attn.prefill_write_pages(k, v, pool[li], tables, token_shard,
                                      token_slot, token_off, token_valid,
@@ -589,10 +611,10 @@ class TransformerLM:
                 out = constrain(out, ("batch", None, "act_ff"))
             ssm_out = (ssm_lib.mamba_forward(lp["ssm"], h)
                        if c.family == "hybrid" else None)
-            x = constrain(self._mixer_residual(lp, x, out @ lp["wo"],
+            x = constrain(self._mixer_residual(lp, x, mm(out, lp["wo"]),
                                                ssm_out),
                           ("batch", None, "embed"))
-            x, _aux = self._mlp_residual(lp, x)
+            x, _aux = self._mlp_residual(lp, x, mm=mm)
             x = constrain(x, ("batch", None, "embed"))
         # sample the first output token from the last valid position
         idx = (seq_lens.long() - 1).clamp(min=0) + (s - tokens.shape[1])
@@ -617,6 +639,7 @@ class TransformerLM:
         ``vlm`` it takes no image, as in the JAX model, and so serves the
         text-only model (carried too)."""
         c = self.cfg
+        mm = self._prefill_mm()
         x = embed_lookup(params["embed"], tokens)                      # [B, S, D]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -625,12 +648,12 @@ class TransformerLM:
         for li in range(c.num_layers):
             lp = layer_params(params, li)
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._qkv(lp, h, positions)
+            q, k, v = self._qkv(lp, h, positions, mm)
             kv[li, :, :s, 0] = k
             kv[li, :, :s, 1] = v
             out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
-            x = x + (out.reshape(b, s, c.q_dim) @ lp["wo"]) * c.residual_scale
-            x, _aux = self._mlp_residual(lp, x)
+            x = x + mm(out.reshape(b, s, c.q_dim), lp["wo"]) * c.residual_scale
+            x, _aux = self._mlp_residual(lp, x, mm=mm)
         idx = (seq_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)

@@ -278,8 +278,9 @@ def test_c_interface_matches_the_bound_signatures():
             r'extern "C" int (libra_\w+)\(([^)]*)\)', text):
         found[name] = len([p for p in params.split(",") if p.strip()])
     assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
-    # the seven TPU kernels' sources and the kTLS-analogue bench's
-    assert len(list(_build.CSRC.glob("*.cu"))) == 8
+    # the seven TPU kernels' sources, the kTLS-analogue bench's and the
+    # prefill's float32 product
+    assert len(list(_build.CSRC.glob("*.cu"))) == 9
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
