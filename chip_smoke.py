@@ -217,18 +217,19 @@ the 23 phases below, in order but where a phase says when it runs:
    and once through the plain versions (``'ref'``) on the same
    parameters, freed before the next config. ``EngineStats`` and
    ``CopyCounters`` identical, every page back, ``flash_attention``
-   launched layers x prefills and ``paged_attention`` layers x decode
-   steps times on the kernel run and never on the plain run, tokens
-   identical under phase 6's near-tie rule or, from the first step at
-   which the plain run's router had a top-k boundary margin (k-th against
-   (k+1)-th probability) below 1e-6 in some layer, excused by it (each
-   case printed with its margin), and the entries dropped past an
-   expert's capacity equal in both runs (the combine adds a token's
-   ``k`` terms in another order than the reference). Prints per run tokens/s, p99,
-   time to first token, ms per decode step, peak device memory, seconds,
-   dropped entries by step, the plain run's router margins by step, and a
-   profiler split of one full-batch decode step: the MoE block's router,
-   dispatch, expert products, combine and shared experts apart from the
+   launched layers x prefills, ``paged_attention`` layers x decode steps
+   and the dropless MoE layer's ``moe_route`` and ``moe_experts`` layers x
+   (prefills + decode steps) times on the kernel run and none of them on
+   the plain run, tokens identical under phase 6's near-tie rule or, from
+   the first step at which the plain run's router had a top-k boundary
+   margin (k-th against (k+1)-th softmax probability of its logits, over
+   the rows routed) below 1e-6 in some layer, excused by it (each case
+   printed with its margin), and both runs routing the same rows call for
+   call, each with ``top_k`` entries a row (nothing dropped). Prints per
+   run tokens/s, p99, time to first token, ms per decode step, peak
+   device memory, seconds, rows routed by step, the plain run's router
+   margins by step, and a profiler split of one full-batch decode step:
+   the MoE layer's routing, its experts and the rest of it apart from the
    attention and the head.
 16. **dense_configs** (right after phase 15) -- ``minicpm-2b`` (36 heads
    of 64, tied head scaled by 1/9, residual branches by 1.4/sqrt(40);
@@ -393,6 +394,19 @@ sources can bring their own. The modes compile with ``-I
 src/repro_torch/kernels/csrc``, so a copy under ``build/`` finds the
 shared headers, and print each build's ``ptxas -v`` and
 SASS opcode mix of its run-shape instantiation.
+
+``python3 chip_smoke.py --moe`` runs only the serving paths' grouped MoE
+experts (``csrc/moe_experts.cu``, no TPU kernel): the build's ``ptxas -v``
+report; at the ``qwen2-moe-a2.7b.chat`` cell's two shapes the routing
+kernels' entries against ``ref.moe_route_ref``'s (the same offsets, each
+group the same entries in any order, gates and rows) and the routed
+experts they note in their ring; the experts kernel's largest error from a float64 oracle beside the float32 plain
+version's (it must stay within 4x) at ragged groups of 0, 1, 63, 64, 65
+and 4096 rows and at the ``qwen2-moe-a2.7b.chat`` cell's decode (128 rows)
+and prefill (4096 rows) shapes, and at those two its medians under both
+flushes beside the split-TF32 bound and today's capacity path (``[E, cap,
+D]`` ``torch.bmm`` at capacity factor 2.0 and the shared expert's three
+products), and the whole dropless layer beside the capacity layer.
 
 ``python3 chip_smoke.py --linear`` runs only the prefill projections'
 kernel (``csrc/linear_f32.cu``, no TPU kernel): the build's ``ptxas -v``
@@ -1955,6 +1969,7 @@ def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
     """One engine run over ``prompts``; returns (engine, results).
     ``watch`` (a :class:`RouterWatch`) is told where each step ends."""
     from repro_torch.core.parser import TokenStreamParser
+    from repro_torch.kernels import moe_experts as kmoe
     from repro_torch.serving.engine import LibraEngine
 
     torch.cuda.synchronize()
@@ -1966,7 +1981,9 @@ def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
     check(eng.pool.alloc.total_pages == ss.pool_pages and eng.pps == ss.pps,
           "engine geometry differs from the serve size")
     reqs = [eng.submit(p, max_new_tokens=ss.gen) for p in prompts]
+    moe = model.cfg.family == "moe"
     kattn.reset_launches()
+    kmoe.reset_launches()
     step_s = {"prefill": [], "decode": []}   # a step ends on a token download
     t0 = time.perf_counter()
     while eng.waiting or eng.active:
@@ -1982,7 +1999,7 @@ def serve_run(ss: ServeSize, model, params, prompts, dev, torch, kattn,
             watch.mark(margins)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(kattn.LAUNCHES)
+    launches = dict(kattn.LAUNCHES, **(kmoe.LAUNCHES if moe else {}))
     alloc = eng.pool.alloc
     check(alloc.free_pages == alloc.total_pages - 1 and
           len(eng.pool.registry) == 0,
@@ -2372,66 +2389,79 @@ def baselines(ss: ServeSize, state: dict, dev, torch, np, kattn):
 # ---------------------------------------------------------------------------
 
 class RouterWatch:
-    """What the MoE layers of one engine run do, kept on the card until
-    the run ends: the entries each ``moe.dispatch_plan`` call drops past
-    an expert's capacity and, with ``margins``, each router call's least
-    top-k boundary margin over its rows (the k-th against the (k+1)-th
-    probability). :meth:`mark` notes where each engine step ends."""
+    """What the dropless MoE layers of one engine run do, kept on the card
+    until the run ends: for each ``ops.moe_route`` call (one a layer a
+    model call) the rows it routes and the entries its routed experts'
+    groups hold, and, with ``margins``, the least top-k boundary margin
+    (the k-th against the (k+1)-th softmax probability) over those rows.
+    :meth:`mark` notes where each engine step ends."""
 
     def __init__(self, margins: bool):
         self.with_margins = margins
-        self.drops, self.margins = [], []
-        self.ends = []     # per step: (router calls, drop calls, logits calls)
+        self.rows, self.entries, self.margins = [], [], []
+        self.top_k = None
+        self.ends = []     # per step: (route calls, logits calls)
         self._saved = None
 
     def __enter__(self):
-        from repro_torch.models import moe
+        from repro_torch.kernels import ops
 
-        router, plan = moe.router_topk, moe.dispatch_plan
-        self._saved = (moe, router, plan)
+        route = ops.moe_route
+        self._saved = (ops, route)
 
-        def router_topk(logits, cfg):
+        def moe_route(logits, x, gate_proj, valid, **kw):
+            self.top_k = kw["top_k"]
+            rows = valid.sum() if valid is not None else logits.shape[0]
             if self.with_margins:
                 probs = logits.float().clone()
-                probs[:, cfg.num_experts:] = -1e30     # as router_topk masks
-                top = probs.softmax(-1).topk(cfg.top_k + 1, dim=-1).values
-                self.margins.append((top[:, -2] - top[:, -1]).min())
-            return router(logits, cfg)
-
-        def dispatch_plan(ids, cfg, cap, e_first, e_count):
-            out = plan(ids, cfg, cap, e_first, e_count)
-            self.drops.append((~out.kept).sum())
+                probs[:, kw["num_experts"]:] = -1e30   # padding: never chosen
+                top = probs.softmax(-1).topk(kw["top_k"] + 1, dim=-1).values
+                gap = top[:, -2] - top[:, -1]
+                if valid is not None:
+                    gap = gap.masked_fill(~valid, float("inf"))
+                self.margins.append(gap.min())
+            out = route(logits, x, gate_proj, valid, **kw)
+            self.rows.append(rows)
+            self.entries.append(out[1][logits.shape[1]])  # routed groups'
             return out
 
-        moe.router_topk, moe.dispatch_plan = router_topk, dispatch_plan
+        ops.moe_route = moe_route
         return self
 
     def __exit__(self, *exc):
-        moe, router, plan = self._saved
-        moe.router_topk, moe.dispatch_plan = router, plan
-        self.drops = [int(d) for d in self.drops]         # the run is over
+        ops, route = self._saved
+        ops.moe_route = route
+        self.rows = [int(r) for r in self.rows]           # the run is over
+        self.entries = [int(n) for n in self.entries]
         self.margins = [float(m) for m in self.margins]
 
     def mark(self, logit_margins) -> None:
-        self.ends.append((len(self.margins), len(self.drops),
+        self.ends.append((len(self.rows),
                           len(logit_margins.calls) if logit_margins else 0))
 
-    def _per_step(self, values, col, reduce):
+    def _per_step(self, values, reduce):
         out, start = [], 0
         for end in self.ends:
-            out.append(reduce(values[start:end[col]]) if end[col] > start
-                       else None)
-            start = end[col]
+            part = values[start:end[0]]
+            out.append(reduce(part) if part else None)
+            start = end[0]
         return out
 
-    def drops_by_step(self) -> list:
-        return self._per_step(self.drops, 1, sum)
+    def rows_by_step(self) -> list:
+        return self._per_step(self.rows, sum)
 
     def margin_by_step(self) -> list:
-        return self._per_step(self.margins, 0, min)
+        return self._per_step(self.margins, min)
+
+    def dropped(self) -> list:
+        """Calls whose routed groups hold other than ``top_k`` entries a
+        routed row: ``(call, rows, entries)``; none where nothing drops."""
+        return [(i, r, n) for i, (r, n) in enumerate(zip(self.rows,
+                                                         self.entries))
+                if n != self.top_k * r]
 
     def first_low_margin(self):
-        """The first router call whose least margin is below
+        """The first route call whose least margin is below
         ``ROUTER_MARGIN`` (one call a MoE layer, in order): its index, its
         step, its place in the step, the margin, and the step's first
         logits call."""
@@ -2440,21 +2470,17 @@ class RouterWatch:
         if call is None:
             return None
         step = next(i for i, end in enumerate(self.ends) if end[0] > call)
-        start = self.ends[step - 1] if step else (0, 0, 0)
+        start = self.ends[step - 1] if step else (0, 0)
         return dict(call=call, step=step, call_in_step=call - start[0],
-                    margin=self.margins[call], logits_call=start[2])
+                    margin=self.margins[call], logits_call=start[1])
 
 
 #: profiler labels of a decode step's parts, innermost first (a device
 #: event goes to the first label whose host range holds its launch):
 #: (label, module, function)
-SPLIT_PARTS = (("moe.router", "repro_torch.models.moe", "router_topk"),
-               ("moe.dispatch", "repro_torch.models.moe", "dispatch_plan"),
-               ("moe.dispatch", "repro_torch.models.moe", "dispatch"),
-               ("moe.experts", "repro_torch.models.moe", "expert_ffn"),
-               ("moe.combine", "repro_torch.models.moe", "combine"),
-               ("moe.shared", "repro_torch.models.moe", "_shared_expert"),
-               ("moe.rest", "repro_torch.models.moe", "moe_ffn"),
+SPLIT_PARTS = (("moe.route", "repro_torch.kernels.ops", "moe_route"),
+               ("moe.experts", "repro_torch.kernels.ops", "moe_experts"),
+               ("moe.rest", "repro_torch.models.moe", "moe_ffn_dropless"),
                ("mlp", "repro_torch.models.transformer", "mlp_apply"),
                ("ssm", "repro_torch.models.ssm", "mamba_step"),
                ("attention", "repro_torch.models.attention",
@@ -2529,10 +2555,11 @@ def part_targets(parts, model) -> list:
 
 
 def parts_decode_split(eng, prompts, ss: ServeSize, torch) -> dict:
-    """Profiler split of one full-batch decode step by part: the MoE
-    block's router (softmax and top-k), dispatch (sort, positions, the
-    buffer), expert products, combine, shared experts and the rest of it
-    (the router's product, the sum), or the dense MLP; the Mamba mixer
+    """Profiler split of one full-batch decode step by part: the dropless
+    MoE layer's routing (``ops.moe_route``: top-k, the sort by expert, the
+    rows gathered), its experts routed and shared (``ops.moe_experts``)
+    and the rest of it (the router's product, each row's sum), or the
+    dense MLP; the Mamba mixer
     (``ssm``, hybrid only); the attention (KV write and paged attention);
     the head; everything else (embedding, norms, projections), through
     :func:`labelled_split`."""
@@ -2594,12 +2621,12 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
     (``'ref'``) on the same parameters (a fixed seed), freed before the
     next: stats, counters and pages as in phase 6, tokens under its
     near-tie rule (a moe run also under the router-margin rule), the
-    kernels launched once a layer a prefill and a decode step, the moe
-    runs' dropped entries equal, a hybrid run's final ``ssm_state`` within
-    ``SSM_STATE_TOL`` where no token diverged. Prints one line for the
-    phase."""
+    kernels launched once a layer a prefill and a decode step (a moe run's
+    routing and experts kernels too), the moe runs routing the same rows
+    call for call and dropping no entry, a hybrid run's final
+    ``ssm_state`` within ``SSM_STATE_TOL`` where no token diverged. Prints
+    one line for the phase."""
     from repro_torch.configs import get_config
-    from repro_torch.models.moe import expert_capacity
     from repro_torch.models.registry import build_model
 
     out = {}
@@ -2640,6 +2667,9 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
         st = kern["stats"]
         want = {"flash_attention": cfg.num_layers * st["prefills"],
                 "paged_attention": cfg.num_layers * st["steps"]}
+        if moe:            # one routing and one experts launch a layer a call
+            calls = cfg.num_layers * (st["prefills"] + st["steps"])
+            want.update(moe_experts=calls, moe_route=calls)
         check(kern["launches"] == want,
               f"{tag}: kernel launches {kern['launches']}, not {want}")
         check(not any(ref["launches"].values()),
@@ -2665,33 +2695,28 @@ def config_runs(phase: str, runs, dev, torch, np, kattn) -> dict:
             entry["hybrid"]["windowed_layers"] = sum(
                 w > 0 for w in models["auto"].windows)
         if moe:
-            drops = {impl: w.drops_by_step() for impl, w in watches.items()}
-            totals = {impl: sum(w.drops) for impl, w in watches.items()}
-            # the same entries dropped, call for call, up to the first call
-            # at which the plain run's routing may flip
-            calls = (watches["auto"].drops, watches["ref"].drops)
-            check(len(calls[0]) == len(calls[1]),
-                  f"{tag}: {len(calls[0])} and {len(calls[1])} MoE calls")
-            differ = next((i for i, (a, b) in enumerate(zip(*calls))
-                           if a != b), None)
-            low = watches["ref"].first_low_margin()
-            differs = None if differ is None else dict(
-                call=differ, auto=calls[0][differ], ref=calls[1][differ],
-                plain_margin=watches["ref"].margins[differ])
-            check(differ is None or (low is not None and low["call"] <= differ),
-                  f"{tag}: dropped entries differ at MoE call {differs} with "
-                  f"no plain router margin below {ROUTER_MARGIN} at or "
-                  f"before it (first: {low}); totals {totals}")
+            # dropless: every routed row makes top_k entries in both runs,
+            # and the two runs route the same rows, call for call
+            for impl, w in watches.items():
+                check(not w.dropped(),
+                      f"{tag} {impl}: MoE calls dropped entries "
+                      f"(call, rows, entries): {w.dropped()[:5]}")
+            check(watches["auto"].rows == watches["ref"].rows,
+                  f"{tag}: the runs route other rows: "
+                  f"{len(watches['auto'].rows)} and "
+                  f"{len(watches['ref'].rows)} MoE calls")
+            check(len(watches["auto"].rows) ==
+                  cfg.num_layers * (st["prefills"] + st["steps"]),
+                  f"{tag}: {len(watches['auto'].rows)} MoE calls, not one "
+                  "a layer a prefill and a decode step")
             entry["moe"] = {
                 "experts": cfg.num_experts,
                 "padded_experts": cfg.padded_experts, "top_k": cfg.top_k,
                 "shared_experts": cfg.num_shared_experts,
                 "prefill_rows": ss.max_batch * ss.prompt,
-                "prefill_capacity": expert_capacity(
-                    ss.max_batch * ss.prompt, cfg, 2.0),
-                "dropped_entries": totals,
-                "drops_differ_from": differs,
-                "dropped_by_step": drops,
+                "route_calls": len(watches["auto"].rows),
+                "routed_entries": sum(watches["auto"].entries),
+                "routed_rows_by_step": watches["auto"].rows_by_step(),
                 "router_margin_by_step": watches["ref"].margin_by_step(),
                 "first_router_margin_below": watches["ref"].first_low_margin()}
         keep = ("seconds", "tokens", "tokens_per_s", "p99_latency_ms",
@@ -3971,6 +3996,155 @@ def linear(dev, torch, ops, _build) -> int:
         del x, w, want
     emit({"phase": "linear", "card": card_line(torch),
           "runs_per_time": TIMED_RUNS, "within_4x_matmul": ok,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    return 0 if ok else 1
+
+
+#: the ``qwen2-moe-a2.7b.chat`` cell's MoE layer: rows of a decode step and
+#: of a prefill; and rows routed to each of six experts for the error
+MOE_ROWS = (("decode", 128), ("prefill", 4096))
+MOE_GROUPS = (0, 1, 63, 64, 65, 4096)
+
+
+def moe_layer(cfg, dev, torch, seed: int) -> dict:
+    """One MoE layer's parameters of ``cfg``, drawn as the benchmark draws
+    them (normal, standard deviation 1 / sqrt(fan-in))."""
+    from repro_torch.models import moe as tmoe
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {k: torch.randn(spec.shape, generator=gen, device=dev)
+            / math.sqrt(spec.shape[-2])
+            for k, spec in tmoe.moe_template(cfg).items()}
+
+
+def route_matches(got, want, e: int, torch) -> dict:
+    """``ops.moe_route``'s entries against ``ref.moe_route_ref``'s on the
+    same logits and rows: the same offsets, each group the same entries
+    (in any order: the kernel places them by atomic counters), each entry
+    its gate (to float32 rounding of the softmax) and its row of x. Also
+    the routed experts it reaches, which the routing kernels note in their
+    ring."""
+    xs, offsets, gates, dest = got
+    w_xs, w_offsets, w_gates, w_dest = want
+    n = int(w_offsets[-1])
+    out = {"offsets_equal": bool(torch.equal(offsets, w_offsets)),
+           "entries": n}
+    groups_equal = out["offsets_equal"]
+    if groups_equal:
+        off = w_offsets.tolist()
+        groups_equal = all(
+            torch.equal(dest[a:b].sort().values, w_dest[a:b])
+            for a, b in zip(off, off[1:]))
+    out["groups_equal"] = groups_equal
+    if groups_equal:
+        order = dest[:n].argsort()
+        wd = w_dest[:n].sort()
+        out["gate_max_abs_diff"] = float(
+            (gates[:n][order] - w_gates[:n][wd.indices]).abs().max())
+        out["rows_equal"] = bool(torch.equal(xs[:n][order],
+                                             w_xs[:n][wd.indices]))
+    out["reached"] = int((w_offsets[1:e + 1] > w_offsets[:e]).sum())
+    out["ok"] = bool(groups_equal and out["rows_equal"]
+                     and out["gate_max_abs_diff"] <= 1e-6)
+    return out
+
+
+def moe(dev, torch, ops, _build) -> int:
+    """The serving paths' grouped MoE experts alone: the module's
+    ``--moe``. The routing kernels against their plain version at the
+    cell's two shapes, the experts kernel against a float64 oracle at
+    ragged groups and at those shapes, and its time beside the capacity
+    path it replaces."""
+    from perfbench.work import moe_experts as work
+    from repro_torch.common.types import ModelConfig
+    from repro_torch.kernels import moe_experts as kmoe
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as tmoe
+
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    spec = json.loads((ROOT / "perfbench" / "configs" /
+                       "qwen2-moe-a2.7b.json").read_text())
+    cfg = ModelConfig(**spec["model"])
+    p = moe_layer(cfg, dev, torch, 36)
+    e, s = cfg.padded_experts, cfg.num_shared_experts
+    shared = (p["shared_gate"], p["shared_up"], p["shared_down"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    ok = True
+
+    def errors(xs, offsets, gates, dest):
+        """The kernel's and the float32 plain version's largest errors
+        from the float64 oracle, over the rows the groups write."""
+        rows = dest[:int(offsets[-1])]
+        d64 = [t.double() for t in (p["w_gate"], p["w_up"], p["w_down"])
+               + shared]
+        want = ref.moe_experts_ref(xs.double(), offsets, gates.double(),
+                                   dest, *d64)[rows]
+        got = ops.moe_experts(xs, offsets, gates, dest, p["w_gate"],
+                              p["w_up"], p["w_down"], *shared,
+                              impl="cuda")[rows]
+        plain = ref.moe_experts_ref(xs, offsets, gates, dest, p["w_gate"],
+                                    p["w_up"], p["w_down"], *shared)[rows]
+        return ((got.double() - want).abs().max().item(),
+                (plain.double() - want).abs().max().item())
+
+    # ragged groups: experts 0-5 hold MOE_GROUPS rows, the rest none; the
+    # shared expert's blocks hold every row
+    sizes = list(MOE_GROUPS) + [0] * (e - len(MOE_GROUPS))
+    rows = sum(sizes)
+    counts = torch.tensor(sizes + [rows] * s, device=dev)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    xs = torch.randn((int(offsets[-1]), cfg.d_model), generator=gen,
+                     device=dev)
+    gates = torch.rand((xs.shape[0],), generator=gen, device=dev)
+    dest = torch.randperm(xs.shape[0], generator=gen, device=dev)
+    err, plain_err = errors(xs, offsets, gates, dest)
+    ok = ok and err <= 4 * plain_err
+    emit({"shape": "ragged", "groups": sizes[:len(MOE_GROUPS)],
+          "max_abs_err": err, "plain_max_abs_err": plain_err})
+    del xs, gates
+    for name, n in MOE_ROWS:
+        x = torch.randn((n, cfg.d_model), generator=gen, device=dev)
+        route = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+                     num_shared=s, norm_topk=cfg.norm_topk)
+        logits = x @ p["router"]
+        xs, offsets, gates, dest = ops.moe_route(
+            logits, x, p["shared_gate_proj"], None, impl="cuda", **route)
+        routed = route_matches((xs, offsets, gates, dest), ref.moe_route_ref(
+            logits, x, p["shared_gate_proj"], None, **route), e, torch)
+        routed["ring"] = kmoe.experts_reached(1, dev)
+        routed["ok"] = routed["ok"] and routed["ring"] == [routed["reached"]]
+        ok = ok and routed["ok"]
+        err, plain_err = errors(xs, offsets, gates, dest)
+        ok = ok and err <= 4 * plain_err
+        flops, nbytes = work.launch(spec["model"], n, routed["reached"])
+        kern = both_flushes(lambda: ops.moe_experts(
+            xs, offsets, gates, dest, p["w_gate"], p["w_up"], p["w_down"],
+            *shared, impl="cuda"), torch)
+        gates_k, ids = tmoe.router_topk(x @ p["router"], cfg)
+        cap = tmoe.expert_capacity(n, cfg, 2.0)
+        cplan = tmoe.dispatch_plan(ids, cfg, cap, 0, e)
+        buf = tmoe.dispatch(x, cplan, cap, e)
+        bmm = both_flushes(lambda: (
+            tmoe.expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"]),
+            tmoe._shared_expert(p, x)), torch)
+        layer = time_ms(lambda: tmoe.moe_ffn_dropless(p, x, cfg), torch)
+        capacity = time_ms(lambda: tmoe.moe_ffn(p, x, cfg,
+                                                capacity_factor=2.0), torch)
+        emit({"shape": name, "rows": n, "entries": int(offsets[-1]),
+              "route": routed,
+              "max_abs_err": err, "plain_max_abs_err": plain_err,
+              "flops": flops, "bytes": nbytes,
+              **tf32_bounds(nbytes, flops, torch), "ms": kern,
+              "bmm_capacity_ms": bmm, "capacity_slots": cap * e,
+              "tflops": flops / kern["dirty_l2"] / 1e9,
+              "dropless_layer_ms": layer, "capacity_layer_ms": capacity})
+        del x, xs, buf
+    emit({"phase": "moe", "card": card_line(torch),
+          "runs_per_time": TIMED_RUNS, "routes_and_within_4x_plain": ok,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     return 0 if ok else 1
 
@@ -5395,6 +5569,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     if sys.argv[1:2] == ["--linear"]:
         return linear(dev, torch, ops, _build)
+    if sys.argv[1:2] == ["--moe"]:
+        return moe(dev, torch, ops, _build)
     if sys.argv[1:2] == ["--mlstm-ab"]:
         with_serve = sys.argv[2:3] == ["--serve"]
         srcs = sys.argv[2 + with_serve:]

@@ -15,7 +15,8 @@ profiler's trace as a ``user_annotation`` on the host thread that ran it.
 The trace's clock is not ``perf_counter``'s: a record and its annotation
 give the offset between the two.
 
-``enable()`` and ``disable()`` turn tracing on and off; ``drain()``
+``enable()`` and ``disable()`` turn tracing on and off, ``enabled()``
+says which; ``drain()``
 returns the records closed so far and forgets them. Nothing is written
 anywhere. Spans nest by the order they are opened, so they are for one
 thread: the serving engine's.
@@ -104,6 +105,12 @@ def enable() -> None:
 def disable() -> None:
     global _on
     _on = False
+
+
+def enabled() -> bool:
+    """Whether tracing is on: a caller computes a counter that costs work
+    (a read from the device) only then."""
+    return _on
 
 
 def drain() -> List[SpanRecord]:

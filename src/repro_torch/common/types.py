@@ -62,6 +62,13 @@ class ModelConfig:
     embed_scale: float = 1.0
     logit_soft_cap: float = 0.0
     qk_norm: bool = False  # qwen3-style
+    # --- the port's own, beyond the JAX package's fields (defaults: its
+    # behaviour) ---
+    # qwen2-style bias on the q, k and v projections (bq, bk, bv)
+    qkv_bias: bool = False
+    # False: a MoE router keeps its top-k softmax probabilities as they
+    # are (qwen2-moe's norm_topk_prob false); True renormalises them
+    norm_topk: bool = True
 
     # training schedule hint (minicpm uses WSD)
     lr_schedule: str = "cosine"  # cosine | wsd
@@ -112,6 +119,11 @@ class ModelConfig:
         from repro_torch.models.registry import count_params_from_config
 
         return count_params_from_config(self, active_only=True)
+
+
+#: the fields ``ModelConfig`` has beyond the JAX package's, at the defaults
+#: that keep its behaviour (every registry arch leaves them there)
+PORT_ONLY_DEFAULTS = {"qkv_bias": False, "norm_topk": True}
 
 
 @dataclasses.dataclass(frozen=True)

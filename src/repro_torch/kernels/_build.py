@@ -50,6 +50,8 @@ SIGNATURES = {
     "libra_ktls_attention": [_P] * 4 + [_I] * 6 + [_P],
     "libra_ktls_dequant": [_P] * 3 + [_I] * 2 + [_P],
     "libra_linear_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "libra_moe_experts": [_P] * 13 + [_I] * 5 + [_P],
+    "libra_moe_route": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -11,7 +11,8 @@ mean the same in both:
            :mod:`repro_torch.kernels.attention`,
            :mod:`repro_torch.kernels.mlstm_scan`,
            :mod:`repro_torch.kernels.ktls_attention`,
-           :mod:`repro_torch.kernels.linear_f32`); raises for a tensor
+           :mod:`repro_torch.kernels.linear_f32`,
+           :mod:`repro_torch.kernels.moe_experts`); raises for a tensor
            that is not on a CUDA device
 ``'auto'`` the kernel for CUDA tensors, the plain version for CPU tensors
 ========== ===============================================================
@@ -21,9 +22,10 @@ mean the same in both:
 ``'auto'``, and a failed kernel launch raises: there is no fallback.
 
 The attention and mLSTM kernels are forward only, as the Pallas kernels
-are, and so is ``linear_f32``: on the ``'cuda'`` route they raise
-``RuntimeError`` when gradients are enabled and an input requires them,
-before any other check, so that a gradient never vanishes in silence.
+are, and so are ``linear_f32`` and the MoE kernels (``moe_route``,
+``moe_experts``): on the ``'cuda'`` route they raise ``RuntimeError`` when
+gradients are enabled and an input requires them, before any other check,
+so that a gradient never vanishes in silence.
 Training differentiates the models' plain functions
 (``models.attention.dense_or_blockwise``, ``models.ssm.mlstm_cell_chunked``)
 instead.
@@ -42,6 +44,7 @@ from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import ktls_attention as _ktls
 from repro_torch.kernels import linear_f32 as _lin
 from repro_torch.kernels import mlstm_scan as _mlstm
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import selective_copy as _k
 
@@ -96,6 +99,34 @@ def linear_f32(x, w, *, impl="auto") -> torch.Tensor:
         forward_only("linear_f32", x, w)
         return _lin.linear_f32(x, w)
     return torch.matmul(x, w)
+
+
+def moe_route(logits, x, gate_proj, valid, *, num_experts, top_k,
+              num_shared, norm_topk, impl="auto"):
+    """The serving paths' MoE entries ``(xs, offsets, gates, dest)``
+    (:func:`repro_torch.kernels.ref.moe_route_ref` states them): the
+    routing kernels, or the plain version's sort."""
+    kw = dict(num_experts=num_experts, top_k=top_k, num_shared=num_shared,
+              norm_topk=norm_topk)
+    if resolve(impl, x) == "cuda":
+        forward_only("moe_route", *(t for t in (logits, x, gate_proj)
+                                    if t is not None))
+        return _moe.moe_route(logits, x, gate_proj, valid, **kw)
+    return _ref.moe_route_ref(logits, x, gate_proj, valid, **kw)
+
+
+def moe_experts(xs, offsets, gates, dest, w_gate, w_up, w_down,
+                shared_gate=None, shared_up=None, shared_down=None, *,
+                impl="auto") -> torch.Tensor:
+    """The serving paths' MoE experts over entries sorted by group
+    (:func:`repro_torch.kernels.ref.moe_experts_ref` states them): the
+    grouped split-TF32 kernel, or the plain version's loop over groups."""
+    args = (xs, offsets, gates, dest, w_gate, w_up, w_down, shared_gate,
+            shared_up, shared_down)
+    if resolve(impl, xs) == "cuda":
+        forward_only("moe_experts", *(t for t in args if t is not None))
+        return _moe.moe_experts(*args)
+    return _ref.moe_experts_ref(*args)
 
 
 def paged_attention(q, pool, tables, page_pos, seq_lens, *, window=0,

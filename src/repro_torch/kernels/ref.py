@@ -7,7 +7,10 @@ them on the card. The four datapath kernels are int32 and bit-identical to
 these; the two attention kernels are float32 and agree to rounding
 (``atol = rtol = 1e-4``, the JAX package's bar), and so does the mLSTM
 scan (``atol = rtol = 5e-4``, 3e-3 at gate extremes, as the JAX package's
-tests hold its Pallas kernel). The kTLS-analogue bench's two kernels
+tests hold its Pallas kernel). The MoE experts' grouped kernel has no
+Pallas kernel and no jnp oracle (the JAX package's experts are einsums
+over a capacity buffer): :func:`moe_experts_ref` states it, and the kernel
+agrees to float32 rounding. The kTLS-analogue bench's two kernels
 mirror the bench's formulas (``benchmarks/bench_ktls_analogue.py``; no
 Pallas kernel): the dequantise pass bit for bit, its attention to
 ``1e-4``.
@@ -321,3 +324,99 @@ def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         log_i.transpose(1, 2), log_f.transpose(1, 2))
     return h.transpose(1, 2)
+
+
+def moe_experts_ref(xs: torch.Tensor, offsets: torch.Tensor,
+                    gates: torch.Tensor, dest: torch.Tensor,
+                    w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor,
+                    shared_gate: Optional[torch.Tensor] = None,
+                    shared_up: Optional[torch.Tensor] = None,
+                    shared_down: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The grouped SwiGLU experts of ``csrc/moe_experts.cu``: ``y [N, D]``.
+
+    ``xs [N, D]`` holds entries sorted by group, group ``g`` in rows
+    ``offsets[g]`` to ``offsets[g + 1] - 1`` (``offsets [E + S + 1]``
+    int32). Group ``g < E`` is expert ``g`` of ``w_gate``, ``w_up [E, D,
+    F]`` and ``w_down [E, F, D]``; group ``E + s`` is block ``s`` of the
+    shared expert, columns ``s F`` to ``(s + 1) F - 1`` of ``shared_gate``,
+    ``shared_up [D, S F]`` and rows of ``shared_down [S F, D]``. Entry ``r``
+    gives ``gates[r] * (silu(xs[r] w_gate) * (xs[r] w_up)) w_down`` to row
+    ``dest[r]`` of ``y`` (``dest [N]`` int64, a permutation of its rows);
+    the rows of the entries from ``offsets[-1]`` on are zero (the kernel
+    leaves them unwritten)."""
+    e, _d, f = w_gate.shape
+    y = xs.new_zeros(xs.shape)
+    off = offsets.tolist()
+    for g in range(len(off) - 1):
+        a, b = off[g], off[g + 1]
+        if a == b:
+            continue
+        if g < e:
+            wg, wu, wd = w_gate[g], w_up[g], w_down[g]
+        else:
+            cols = slice((g - e) * f, (g - e + 1) * f)
+            wg, wu, wd = shared_gate[:, cols], shared_up[:, cols], \
+                shared_down[cols]
+        x = xs[a:b]
+        h = torch.nn.functional.silu(x @ wg) * (x @ wu)
+        y[dest[a:b]] = (h @ wd) * gates[a:b, None]
+    return y
+
+
+
+def router_topk_ref(logits: torch.Tensor, num_experts: int, top_k: int,
+                    norm_topk: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[T, Ep]`` router logits -> ``(gates [T, k], ids [T, k])``: the
+    ``top_k`` experts of highest softmax probability (float32), experts
+    from ``num_experts`` on masked out first so that they are never
+    chosen, gated by their probability, renormalised to sum to 1 with
+    ``norm_topk``."""
+    ep = logits.shape[-1]
+    if ep > num_experts:
+        pad = torch.arange(ep, device=logits.device) >= num_experts
+        logits = logits.masked_fill(pad, -1e30)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = torch.topk(probs, top_k, dim=-1, sorted=True)
+    if norm_topk:
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    return gates, ids
+
+
+def moe_route_ref(logits: torch.Tensor, x: torch.Tensor,
+                  gate_proj: Optional[torch.Tensor],
+                  valid: Optional[torch.Tensor], *, num_experts: int,
+                  top_k: int, num_shared: int, norm_topk: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The entries of :func:`moe_experts_ref` for a dropless MoE layer:
+    ``(xs, offsets, gates, dest)``. Each row of ``x [T, D]`` where ``valid
+    [T]`` (every row without it) makes ``top_k`` entries, its experts of
+    highest softmax probability over the router's ``logits [T, Ep]``
+    (experts from ``num_experts`` on are padding, never chosen), gated by
+    that probability (renormalised over the ``top_k`` with ``norm_topk``),
+    then one entry for each of the shared expert's ``num_shared`` blocks
+    (groups ``Ep`` to ``Ep + num_shared - 1``), gated by ``sigmoid(x
+    gate_proj)``. The entries are sorted by group (stably here; in any
+    order within a group in the kernel): ``offsets [Ep + num_shared + 1]``
+    int32 bound the groups, ``xs`` holds each entry's row of ``x``,
+    ``gates`` its gate and ``dest`` its place in token order, ``row * width
+    + j`` (``width = top_k + num_shared``). Entries of rows not routed sort
+    past the last group; their ``xs``, ``gates`` and ``dest`` are
+    unspecified (the kernel leaves them unwritten)."""
+    t, ep = logits.shape
+    s = num_shared
+    gates, ids = router_topk_ref(logits, num_experts, top_k, norm_topk)
+    if s:
+        blocks = torch.arange(ep, ep + s, device=x.device)
+        ids = torch.cat([ids, blocks.expand(t, s)], dim=1)
+        gates = torch.cat([gates, torch.sigmoid(x @ gate_proj).expand(t, s)],
+                          dim=1)
+    if valid is not None:           # rows not routed sort past every group
+        ids = torch.where(valid[:, None], ids, ep + s)
+    sorted_ids, dest = torch.sort(ids.reshape(-1), stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(ep + s + 1, device=x.device,
+                                 dtype=sorted_ids.dtype), out_int32=True)
+    return x[dest // (top_k + s)], offsets, gates.reshape(-1)[dest], dest

@@ -193,15 +193,25 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def rope_rotation(positions: torch.Tensor, head_dim: int, theta: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` of the rotary angles at ``positions [..., seq]``,
+    shaped ``[..., seq, 1, head_dim / 2]``: what :func:`apply_rope` turns
+    by, the same for every layer of a call."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)  # [hd/2]
+    ang = positions[..., None].float() * freqs                # [..., seq, hd/2]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotation: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
     """x [..., seq, heads, head_dim]; positions broadcastable to [..., seq].
     Rotates the split halves ``(x[:hd/2], x[hd/2:])``, not interleaved
-    pairs."""
+    pairs, by ``rotation`` (:func:`rope_rotation` of ``positions``, made
+    here where it is not given)."""
     dt = x.dtype
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # [hd/2]
-    ang = positions[..., None].float() * freqs                # [..., seq, hd/2]
-    cos = torch.cos(ang)[..., None, :]                        # [..., seq, 1, hd/2]
-    sin = torch.sin(ang)[..., None, :]
+    cos, sin = rotation or rope_rotation(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
 

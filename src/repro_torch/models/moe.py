@@ -1,21 +1,46 @@
-"""Mixture-of-Experts FFN with sort-based capacity dispatch.
+"""Mixture-of-Experts FFN: sort-based capacity dispatch in training, and
+dropless routing on the serving paths.
 
-PyTorch twin of the JAX package's ``repro.models.moe`` on one device:
-tokens are sorted by expert id and gathered into a capacity-bounded
-``[E, C, D]`` buffer, the per-expert FFN is one batched product a weight
-(``torch.bmm``; plain XLA dots in the reference, no Pallas kernel), and
-the combine sums each token's ``k`` expert outputs weighted by the router
-gates. Tokens past an expert's capacity pass through the residual. Which
-tokens are dropped follows the reference exactly: a stable sort,
-``searchsorted`` from the left, the capacity counted over every row
-passed in (padding included).
+PyTorch twin of the JAX package's ``repro.models.moe`` on one device, for
+training (:func:`moe_ffn`): tokens are sorted by expert id and gathered
+into a capacity-bounded ``[E, C, D]`` buffer, the per-expert FFN is one
+batched product a weight (``torch.bmm``; plain XLA dots in the reference,
+no Pallas kernel), and the combine sums each token's ``k`` expert outputs
+weighted by the router gates. Tokens past an expert's capacity pass through
+the residual. Which tokens are dropped follows the reference exactly: a
+stable sort, ``searchsorted`` from the left, the capacity counted over
+every row passed in (padding included).
+
+The serving paths (``TransformerLM.prefill`` / ``decode_step`` and the
+baselines' ``prefill_dense`` / ``decode_step_dense``, on plain tensors)
+take :func:`moe_ffn_dropless` instead: every real row goes to its ``top_k``
+experts and no entry is dropped, as the published models route. This
+departs from the JAX package, whose serving paths dispatch at capacity
+factor 2.0 over every row of the call, the group prefill's padding
+included, so that the rows of a call decide each other's drops. Here a
+prefill's padding rows are not routed at all, a token's output does not
+depend on which other rows share its call, and the result equals the
+reference's wherever its capacity drops nothing. The entries are made
+and sorted by expert on the device (``ops.moe_route``, one call of the
+routing kernels on CUDA tensors) and the groups' bounds stay there: the
+experts run in one launch of ``ops.moe_experts`` (the grouped split-TF32
+kernel), with the shared expert folded in as ``num_shared_experts``
+blocks that every real row visits, and the host never waits inside a
+layer. Over a mesh that shards the experts, serving keeps the reference's
+capacity dispatch (below), and so drops entries past an expert's capacity
+as the JAX package does: a dropless expert-parallel path would need each
+rank's ragged groups on its own experts and no fixed buffer to all-reduce,
+which is not built, and no serving run of the port uses such a mesh yet.
 
 Dispatch and combine are gathers, and so are their backward passes: no
 row is summed by atomic additions on a CUDA tensor, and two runs on the
 same inputs give the same bits (training's exact resume needs that).
 The reference scatter-adds (``.at[token_idx].add``) in expert order; the
 combine here adds a token's ``k`` terms in choice order, so the two
-differ by float rounding when ``k > 2``.
+differ by float rounding when ``k > 2``. The dropless path's routing
+kernels place entries within an expert's group by atomic counters, but
+each entry's output is computed alone and a row sums its entries in
+token order, so its values repeat run to run too.
 
 Under a mesh with a ``model`` axis of more than one rank that divides
 ``padded_experts`` (``common.sharding.use_mesh``), ``moe_ffn`` takes the
@@ -34,7 +59,7 @@ gets a partial gradient over it (``in_grad_placements``).
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +75,10 @@ from repro_torch.common.sharding import (
     placements_for,
     psum_identity_grad,
 )
+from repro_torch.common.tracing import span
 from repro_torch.common.types import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import router_topk_ref
 from repro_torch.models.layers import ParamSpec
 
 
@@ -77,15 +105,11 @@ def moe_template(cfg: ModelConfig) -> Dict:
 def router_topk(logits: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[T, E_padded] -> (gates [T, k], expert_ids [T, k]). Padded experts
-    are masked out before top-k so they can never be selected."""
-    if cfg.padded_experts > cfg.num_experts:
-        pad = torch.arange(cfg.padded_experts,
-                           device=logits.device) >= cfg.num_experts
-        logits = logits.masked_fill(pad, -1e30)
-    probs = torch.softmax(logits.float(), dim=-1)
-    gates, ids = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
-    gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    return gates, ids
+    are masked out before top-k so they can never be selected. The gates
+    are the top-k softmax probabilities, renormalised to sum to 1 unless
+    ``cfg.norm_topk`` is off (``ref.router_topk_ref``)."""
+    return router_topk_ref(logits, cfg.num_experts, cfg.top_k,
+                           cfg.norm_topk)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
@@ -194,13 +218,47 @@ def _shared_expert(p, x: torch.Tensor) -> torch.Tensor:
     return sg * (sh @ p["shared_down"])
 
 
+def moe_ffn_dropless(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     valid: Optional[torch.Tensor] = None,
+                     rows: Optional[int] = None,
+                     impl: str = "auto") -> torch.Tensor:
+    """The serving paths' MoE layer: x [T, D] -> [T, D], every row where
+    ``valid [T]`` (all rows without it) sent to its ``top_k`` experts and
+    to the shared expert's ``num_shared_experts`` blocks, nothing dropped;
+    the other rows are not routed and give zeros. After the router's
+    product, ``ops.moe_route`` makes the entries (sorted by group, the
+    groups' bounds on the device) and ``ops.moe_experts`` runs them all,
+    writing each entry's output back in token order; each row then sums
+    its ``top_k + num_shared_experts`` of them. ``rows``, the number of
+    valid rows where the caller knows it on the host, sets the
+    ``model.moe`` span's counters: ``rows``, ``entries`` (``rows *
+    top_k``) and ``skipped_rows``. Nothing here waits for the device."""
+    t, d = x.shape
+    s = cfg.num_shared_experts
+    real = t if rows is None else rows
+    with span("model.moe", rows=real, entries=real * cfg.top_k,
+              skipped_rows=t - real):
+        xs, offsets, gates, dest = ops.moe_route(
+            x @ p["router"], x, p["shared_gate_proj"] if s else None, valid,
+            num_experts=cfg.num_experts, top_k=cfg.top_k, num_shared=s,
+            norm_topk=cfg.norm_topk, impl=impl)
+        shared = (p["shared_gate"], p["shared_up"], p["shared_down"]) if s \
+            else ()
+        y = ops.moe_experts(xs, offsets, gates, dest, p["w_gate"], p["w_up"],
+                            p["w_down"], *shared, impl=impl)
+        out = y.view(t, cfg.top_k + s, d).sum(dim=1)
+        if valid is not None:
+            out = torch.where(valid[:, None], out, 0.0)
+        return out
+
+
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             capacity_factor: float = 1.25, return_aux: bool = False):
-    """x [T, D] -> [T, D] (and the auxiliary loss with ``return_aux``).
-    Without a mesh that shards the experts, the reference's one-device
-    path, every expert local; with one, the expert-parallel path (the
-    module's docstring). The serving paths pass ``capacity_factor=2.0``;
-    1.25 is training's."""
+    """x [T, D] -> [T, D] (and the auxiliary loss with ``return_aux``),
+    capacity dispatch. Without a mesh that shards the experts, the
+    reference's one-device path, every expert local; with one, the
+    expert-parallel path (the module's docstring). Training passes 1.25;
+    serving over such a mesh, 2.0."""
     mesh = _current_mesh()
     e = cfg.padded_experts
     if mesh is not None:

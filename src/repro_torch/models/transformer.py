@@ -3,9 +3,12 @@ serving path.
 
 PyTorch twin of the JAX package's ``repro.models.transformer.TransformerLM``
 for ``family == "dense"`` (phi3, phi4, minicpm, mistral-nemo, the
-libra-proxy model), ``family == "moe"`` (qwen2-moe, qwen3-moe: the FFN
-is ``models/moe.moe_ffn``, one call a layer over all ``B*S`` rows, padded
-positions included, at ``SERVE_CAPACITY_FACTOR``) and
+libra-proxy model), ``family == "moe"`` (qwen2-moe, qwen3-moe: the
+serving paths' FFN is ``models/moe.moe_ffn_dropless``, one call a layer
+over the call's rows, a prefill's padding positions left unrouted, every
+real row sent to its experts with nothing dropped, where the JAX package
+dispatches every row at capacity factor 2.0; over a mesh that shards the
+experts, and in training, ``moe_ffn``'s capacity dispatch) and
 ``family == "hybrid"`` (hymba: each layer runs a Mamba mixer,
 ``models/ssm``, beside its attention on the same normed input and adds
 the mean of the two branches, each RMS-normed; attention is windowed on
@@ -32,8 +35,15 @@ FFN's products, in ``prefill`` and ``prefill_dense``) go to
 float32 accuracy, which the float32 configurations leave to the CUDA cores
 otherwise; on the CPU ``torch.matmul``. The others stay ``torch.matmul``:
 the decode steps' (host-bound, see PERF.md), the heads, training's
-(bfloat16), the MoE experts', the Mamba mixer's, the image projection's,
-and every product over a mesh (DTensors).
+(bfloat16), the MoE router's, the Mamba mixer's, the image projection's,
+and every product over a mesh (DTensors). The serving paths' MoE experts
+run in one launch of ``ops.moe_experts`` a layer, the grouped split-TF32
+kernel on CUDA tensors.
+
+Two fields of ``ModelConfig`` go beyond the JAX package's, each off at its
+default: ``qkv_bias`` adds ``bq``, ``bk``, ``bv`` after the q, k and v
+products, and ``norm_topk=False`` keeps the router's top-k probabilities
+as they are (qwen2-moe's published config).
 
 Training (:meth:`TransformerLM.forward`, :meth:`TransformerLM.loss_fn`)
 follows the reference's training form: every parameter cast to
@@ -63,8 +73,15 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.common.sharding import constrain, gather_fsdp, use_mesh
+from repro_torch.common import tracing
+from repro_torch.common.sharding import (
+    _current_mesh,
+    constrain,
+    gather_fsdp,
+    use_mesh,
+)
 from repro_torch.common.tracing import span
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
@@ -85,6 +102,7 @@ from repro_torch.models.layers import (
     param_axes,
     remat_call,
     rms_norm,
+    rope_rotation,
     split_heads,
     tree_map,
     unstack,
@@ -93,8 +111,9 @@ from repro_torch.models.layers import (
 #: the families this model serves (``registry.build_model`` builds the
 #: others' models)
 FAMILIES = ("dense", "moe", "hybrid", "vlm")
-#: an MoE layer's capacity factor on the serving paths and in training,
-#: the reference's values
+#: an MoE layer's capacity factor in training and, over a mesh that
+#: shards the experts, on the serving paths: the reference's values (the
+#: serving paths drop nothing otherwise)
 SERVE_CAPACITY_FACTOR = 2.0
 TRAIN_CAPACITY_FACTOR = 1.25
 
@@ -140,11 +159,6 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
             for _ in range(grp.start, grp.end)]
 
 
-def layer_params(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return tree_map(lambda a: a[i], params["layers"])
-
-
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, page_size: int = 64,
                  attn_impl: str = "auto"):
@@ -176,6 +190,10 @@ class TransformerLM:
             "wo": ParamSpec((c.q_dim, c.d_model), ("tensor", "fsdp")),
             "ln2": ParamSpec((c.d_model,), (None,), init="zeros"),
         }
+        if c.qkv_bias:
+            t["bq"] = ParamSpec((c.q_dim,), ("tensor",), init="zeros")
+            t["bk"] = ParamSpec((c.kv_dim,), ("tensor",), init="zeros")
+            t["bv"] = ParamSpec((c.kv_dim,), ("tensor",), init="zeros")
         if c.qk_norm:
             t["q_norm"] = ParamSpec((c.head_dim,), (None,), init="zeros")
             t["k_norm"] = ParamSpec((c.head_dim,), (None,), init="zeros")
@@ -278,19 +296,28 @@ class TransformerLM:
         return out
 
     def _qkv(self, lp, h: torch.Tensor, positions: torch.Tensor,
-             mm=torch.matmul):
+             mm=torch.matmul, rotation=None):
         """Projections of the normed input h [..., D] into q [..., Hq, hd]
-        and k, v [..., Hkv, hd] by the product ``mm``, with qk-norm and
-        RoPE at ``positions`` (shaped like ``h`` without its last dim)."""
+        and k, v [..., Hkv, hd] by the product ``mm`` (plus ``bq``, ``bk``,
+        ``bv`` under ``qkv_bias``), with qk-norm and RoPE at ``positions``
+        (shaped like ``h`` without its last dim; ``rotation``, its
+        ``rope_rotation``, where the caller made it once for its layers)."""
         c = self.cfg
-        q = split_heads(mm(h, lp["wq"]), c.num_heads, c.head_dim)
-        k = split_heads(mm(h, lp["wk"]), c.num_kv_heads, c.head_dim)
-        v = split_heads(mm(h, lp["wv"]), c.num_kv_heads, c.head_dim)
+        if c.qkv_bias and mm is torch.matmul:      # the bias in the product
+            q, k, v = (F.linear(h, lp[w].t(), lp[b]) for w, b in
+                       (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        else:
+            q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
+            if c.qkv_bias:
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = split_heads(q, c.num_heads, c.head_dim)
+        k = split_heads(k, c.num_kv_heads, c.head_dim)
+        v = split_heads(v, c.num_kv_heads, c.head_dim)
         if c.qk_norm:
             q = rms_norm(q, lp["q_norm"], c.norm_eps)
             k = rms_norm(k, lp["k_norm"], c.norm_eps)
-        return (apply_rope(q, positions, c.rope_theta),
-                apply_rope(k, positions, c.rope_theta), v)
+        return (apply_rope(q, positions, c.rope_theta, rotation),
+                apply_rope(k, positions, c.rope_theta, rotation), v)
 
     @staticmethod
     def _constrain_qkv(q, k, v, head_sharded: bool):
@@ -313,31 +340,51 @@ class TransformerLM:
         shard."""
         c = self.cfg
         if ssm_out is None:
-            return x + attn_out * c.residual_scale
+            return self._residual(x, attn_out)
         mixed = 0.5 * (rms_norm(attn_out, lp["attn_branch_norm"], c.norm_eps)
                        + rms_norm(ssm_out, lp["ssm_branch_norm"], c.norm_eps))
-        return x + mixed * c.residual_scale
+        return self._residual(x, mixed)
+
+    def _residual(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """``x + out * residual_scale``; with the scale at 1 (every config
+        but minicpm's), ``x + out``, the same bits one op sooner."""
+        scale = self.cfg.residual_scale
+        return x + out if scale == 1.0 else x + out * scale
 
     def _mlp_residual(self, lp, x: torch.Tensor,
-                      capacity_factor: float = SERVE_CAPACITY_FACTOR,
-                      mm=torch.matmul) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The FFN block over x [..., D]: ``(x + its output, aux)``, ``aux``
-        the MoE load-balancing loss (a float32 zero under a dense FFN). A
-        ``moe`` layer routes all of x's rows in one call, as every path of
-        the reference does (capacity is per call, so the rows decide each
-        other's drops), with its own products; a dense FFN's products are
-        ``mm``."""
+                      capacity_factor: Optional[float] = None,
+                      mm=torch.matmul, valid: Optional[torch.Tensor] = None,
+                      rows: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The FFN block over x [..., D]: ``(x + its output, aux)``. With a
+        ``capacity_factor`` (training's) ``aux`` is the MoE load-balancing
+        loss, a float32 zero under a dense FFN; without one, ``None``. A
+        ``moe`` layer routes x's rows in one call:
+        with a ``capacity_factor`` (training's) by ``moe_ffn``'s capacity
+        dispatch, as the reference does; without one (the serving paths)
+        by ``moe_ffn_dropless``, the rows where ``valid`` (x's shape less
+        its last dim; every row without it) and ``rows`` of them, unless a
+        mesh shards the experts, when ``moe_ffn`` runs at
+        ``SERVE_CAPACITY_FACTOR``. A dense FFN's products are ``mm``."""
         c = self.cfg
         h2 = rms_norm(x, lp["ln2"], c.norm_eps)
-        if c.family == "moe":
+        aux = None if capacity_factor is None else torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+        if c.family == "moe" and capacity_factor is None \
+                and _current_mesh() is None:
+            out = moe_lib.moe_ffn_dropless(
+                lp["moe"], h2.reshape(-1, c.d_model), c,
+                valid=None if valid is None else valid.reshape(-1),
+                rows=rows, impl=self.attn_impl).reshape(x.shape)
+        elif c.family == "moe":
             out, aux = moe_lib.moe_ffn(
                 lp["moe"], h2.reshape(-1, c.d_model), c,
-                capacity_factor=capacity_factor, return_aux=True)
+                capacity_factor=capacity_factor or SERVE_CAPACITY_FACTOR,
+                return_aux=True)
             out = out.reshape(x.shape)
         else:
             out = mlp_apply(lp["mlp"], h2, c.act, mm)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + out * c.residual_scale, aux
+        return self._residual(x, out), aux
 
     # ------------------------------------------------------------------
     # training: full forward and loss
@@ -505,10 +552,12 @@ class TransformerLM:
             mesh_kw["write_index"] = attn.decode_write_index(
                 tables, page_pos, seq_lens, write_shard, write_slot,
                 pool.shape[2], **mesh_kw)
-            for li in range(c.num_layers):
-                lp = layer_params(params, li)
+            rotation = rope_rotation(seq_lens[:, None], c.head_dim,
+                                     c.rope_theta)
+            for li, lp in enumerate(unstack(params["layers"])):
                 h = rms_norm(x, lp["ln1"], c.norm_eps)
-                q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
+                q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None],
+                                    rotation=rotation)
                 out = attn.paged_decode_attention(
                     q[:, 0], k[:, 0], v[:, 0], pool[li], tables, page_pos,
                     seq_lens, write_shard, write_slot,
@@ -572,6 +621,22 @@ class TransformerLM:
                                  token_valid, img_embeds, mesh, batch_axis,
                                  combine_axes, tp_size)
 
+    def _real_rows(self, positions: torch.Tensor, ends: torch.Tensor
+                   ) -> Dict[str, Any]:
+        """A prompt call's real rows for a ``moe`` layer (nothing for the
+        other families): ``valid``, the positions ``[B, S]`` before each
+        row's end ``ends [B]`` (the padding after them is not routed), and,
+        while tracing is on, ``rows``, their count for the ``model.moe``
+        span's counters: a read from the device, once a call and never
+        inside a layer."""
+        if self.cfg.family != "moe":
+            return {}
+        valid = positions < ends[:, None].to(positions.dtype)
+        kw: Dict[str, Any] = {"valid": valid}
+        if tracing.enabled():
+            kw["rows"] = int(valid.sum())
+        return kw
+
     def _prefill_mm(self, mesh=None):
         """The product of the prefill's per-layer projections:
         ``ops.linear_f32`` at ``attn_impl`` (the split-TF32 kernel on CUDA
@@ -596,11 +661,12 @@ class TransformerLM:
         write_kw["write_index"] = attn.prefill_write_index(
             tables, token_shard, token_slot, token_off, token_valid,
             **write_kw)
-        for li in range(c.num_layers):
-            lp = layer_params(params, li)
+        moe_kw = self._real_rows(positions, seq_lens + (s - tokens.shape[1]))
+        rotation = rope_rotation(positions, c.head_dim, c.rope_theta)
+        for li, lp in enumerate(unstack(params["layers"])):
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._constrain_qkv(*self._qkv(lp, h, positions, mm),
-                                          head_sharded)
+            q, k, v = self._constrain_qkv(
+                *self._qkv(lp, h, positions, mm, rotation), head_sharded)
             attn.prefill_write_pages(k, v, pool[li], tables, token_shard,
                                      token_slot, token_off, token_valid,
                                      **write_kw)
@@ -614,7 +680,7 @@ class TransformerLM:
             x = constrain(self._mixer_residual(lp, x, mm(out, lp["wo"]),
                                                ssm_out),
                           ("batch", None, "embed"))
-            x, _aux = self._mlp_residual(lp, x, mm=mm)
+            x, _aux = self._mlp_residual(lp, x, mm=mm, **moe_kw)
             x = constrain(x, ("batch", None, "embed"))
         # sample the first output token from the last valid position
         idx = (seq_lens.long() - 1).clamp(min=0) + (s - tokens.shape[1])
@@ -645,15 +711,16 @@ class TransformerLM:
         positions = torch.arange(s, device=x.device).expand(b, s)
         kv = x.new_zeros((c.num_layers, b, max_len, 2, c.num_kv_heads,
                           c.head_dim))
-        for li in range(c.num_layers):
-            lp = layer_params(params, li)
+        moe_kw = self._real_rows(positions, seq_lens)
+        rotation = rope_rotation(positions, c.head_dim, c.rope_theta)
+        for li, lp in enumerate(unstack(params["layers"])):
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._qkv(lp, h, positions, mm)
+            q, k, v = self._qkv(lp, h, positions, mm, rotation)
             kv[li, :, :s, 0] = k
             kv[li, :, :s, 1] = v
             out = attn.prefill_attention(q, k, v, impl=self.attn_impl)
-            x = x + mm(out.reshape(b, s, c.q_dim), lp["wo"]) * c.residual_scale
-            x, _aux = self._mlp_residual(lp, x, mm=mm)
+            x = self._residual(x, mm(out.reshape(b, s, c.q_dim), lp["wo"]))
+            x, _aux = self._mlp_residual(lp, x, mm=mm, **moe_kw)
         idx = (seq_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), idx]         # [B, D]
         last = rms_norm(last, params["final_norm"], c.norm_eps)
@@ -686,17 +753,18 @@ class TransformerLM:
         wpos = seq_lens.long().clamp(0, smax - 1)
         pos_kv = torch.arange(smax, device=x.device).expand(b, smax)
         valid = pos_kv <= seq_lens[:, None]
-        for li in range(c.num_layers):
-            lp = layer_params(params, li)
+        rotation = rope_rotation(seq_lens[:, None], c.head_dim, c.rope_theta)
+        for li, lp in enumerate(unstack(params["layers"])):
             h = rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None])
+            q, k, v = self._qkv(lp, h[:, None], seq_lens[:, None],
+                                rotation=rotation)
             cache_l = cache[li]                                 # [B, Smax, ...]
             cache_l[rows, wpos] = torch.stack([k[:, 0], v[:, 0]],
                                               dim=1).to(cache.dtype)
             out = attn.dense_attention(q, cache_l[:, :, 0], cache_l[:, :, 1],
                                        seq_lens[:, None], pos_kv,
                                        causal=False, kv_valid=valid)[:, 0]
-            x = x + (out.reshape(b, c.q_dim) @ lp["wo"]) * c.residual_scale
+            x = self._residual(x, out.reshape(b, c.q_dim) @ lp["wo"])
             x, _aux = self._mlp_residual(lp, x)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
         return self.logits(params, x, weight_dtype=torch.bfloat16), cache

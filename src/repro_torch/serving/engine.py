@@ -184,6 +184,7 @@ class LibraEngine(_EngineBase):
                                     device=self.device)
         # parking page for inactive slots (keeps decode NaN-free)
         self._parking = self.pool.alloc.alloc_page(0, 0)
+        self._parking_handle = SeqHandle(0, [self._parking], 0, 0)
         # the hybrid family's Mamba state, a row a batch slot: made zero
         # once and only ever advanced by decode steps (prefill writes none),
         # so a request decodes from whatever its row last held, as in the
@@ -300,9 +301,8 @@ class LibraEngine(_EngineBase):
                 seq_lens[i] = pos
                 tokens[i] = r.output[-1]
             # inactive slots park on a scratch page
-            parking = SeqHandle(0, [self._parking], 0, 0)
             while len(handles) < b:
-                handles.append(parking)
+                handles.append(self._parking_handle)
             tables, page_pos = self.pool.batch_tables(handles, self.pps)
             wsh, wsl = self.pool.write_coords(handles, seq_lens.tolist())
         with span("engine.upload"):

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from _configs import assert_config_matches_jax
+
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.common.sharding import make_mesh
@@ -80,7 +82,7 @@ def _jit_kw(b=2):
 def test_config_and_param_count_match_jax():
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jconfigs, get)(ARCH), getattr(tconfigs, get)(ARCH)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert_config_matches_jax(j, t)
     assert tconfigs.get_config(ARCH).param_count() == \
         jconfigs.get_config(ARCH).param_count() == WHISPER_PARAMS
     tm = t_build(tconfigs.get_reduced(ARCH))

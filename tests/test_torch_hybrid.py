@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from _configs import assert_config_matches_jax
+
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.common.sharding import make_mesh
@@ -107,7 +109,7 @@ def _jit_kw(b=2):
 def test_config_and_param_count_match_jax():
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jconfigs, get)(ARCH), getattr(tconfigs, get)(ARCH)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert_config_matches_jax(j, t)
     full = tconfigs.get_config(ARCH)
     assert full.param_count() == jconfigs.get_config(ARCH).param_count() \
         == HYMBA_PARAMS
@@ -127,10 +129,10 @@ def _cfg_variants():
 @pytest.mark.parametrize("variant", list(_cfg_variants()))
 def test_layer_groups_match_jax(variant):
     cfg = _cfg_variants()[variant]
+    jbase = jconfigs.get_config(ARCH)
     jcfg = jconfigs.get_config(cfg.name) if variant == "dense" else \
-        dataclasses.replace(jconfigs.get_config(ARCH),
-                            **{f.name: getattr(cfg, f.name)
-                               for f in dataclasses.fields(cfg)})
+        dataclasses.replace(jbase, **{f.name: getattr(cfg, f.name)
+                                      for f in dataclasses.fields(jbase)})
     want = [(g.start, g.end, g.window) for g in jtrans.layer_groups(jcfg)]
     got = [(g.start, g.end, g.window) for g in ttrans.layer_groups(cfg)]
     assert got == want

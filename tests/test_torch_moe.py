@@ -42,8 +42,10 @@ ROWS = [4, 37, 192]
 @pytest.fixture(scope="module", params=ARCHS)
 def block(request):
     """(arch, config, JAX params, port params) of the reduced config's MoE
-    block."""
-    cfg = jconfigs.get_reduced(request.param)
+    block. The config is the port's: both packages' functions read it (its
+    JAX fields equal the reference's, ``test_torch_serving``), and the
+    port's router reads ``norm_topk`` too."""
+    cfg = tconfigs.get_reduced(request.param)
     jp = jlayers.init_params(jax.random.PRNGKey(1), jmoe.moe_template(cfg))
     tp = {k: torch.from_numpy(np.array(v, np.float32))
           for k, v in jax.tree.map(np.asarray, jp).items()}

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from _configs import assert_config_matches_jax
+
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.common.sharding import make_mesh
@@ -72,7 +74,7 @@ def _close(jax_out, torch_out):
 def test_configs_and_param_counts_match_jax(arch):
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert_config_matches_jax(j, t)
     full = tconfigs.get_config(arch)
     assert full.param_count() == jconfigs.get_config(arch).param_count()
     if arch == "phi4-mini-3.8b":
@@ -97,8 +99,8 @@ def test_every_family_builds_and_every_config_matches_jax(family):
     assert tconfigs.ARCHS == jconfigs.ARCHS
     for arch in jconfigs.ARCHS:
         for get in ("get_config", "get_reduced"):
-            assert dataclasses.asdict(getattr(tconfigs, get)(arch)) == \
-                dataclasses.asdict(getattr(jconfigs, get)(arch))
+            assert_config_matches_jax(getattr(jconfigs, get)(arch),
+                                      getattr(tconfigs, get)(arch))
     assert {a for a, c in tconfigs.all_configs().items()
             if c.family == family} == \
         {a for a, c in jconfigs.all_configs().items() if c.family == family}

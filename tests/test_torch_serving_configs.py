@@ -11,13 +11,21 @@ for all four and, on qwen2-moe, ``StandardEngine``, ``CopierEngine`` and
 ``StaticEngine`` (``device="cpu"``). Tokens, ``EngineStats`` and
 ``CopyCounters`` must be identical (integers: exact equality), the KV pool,
 cache and logits agree to ``atol = rtol = 1e-4`` (float32, several layers
-of rounding). The MoE layers route every row of a call together, padded
-prompt positions included, at the serving paths' capacity factor 2.0, as
-the reference does. Also the launcher's report for ``--arch
-qwen2-moe-a2.7b`` against the JAX launcher's."""
+of rounding). The port's MoE layers serve dropless: every real row goes to
+its experts, nothing is dropped, and a prefill's padding rows are not
+routed. The reference routes every row of a call at capacity factor 2.0,
+at which these reduced models' routers overflow an expert; the two agree
+where its capacity drops nothing. So each MoE case runs the reference's
+serving calls at the capacity that holds every row of a call
+(``padded_experts / top_k``), asserts from the reference's own routing
+that it dropped no entry, and compares the pool and caches at every slot
+but those whose last write came from a prefill's padding (no request
+reads them). Also the launcher's report for
+``--arch qwen2-moe-a2.7b`` against the JAX launcher's."""
 import contextlib
 import dataclasses
 import io
+import math
 import os
 import subprocess
 import sys
@@ -35,11 +43,13 @@ import repro_torch.configs as tconfigs
 from repro.common.sharding import make_mesh
 from repro.core.parser import TokenStreamParser as JParser
 from repro.models import attention as jattn
+from repro.models import moe as jmoe
 from repro.models.registry import build_model as j_build
 from repro.serving import engine as jengine
 from repro_torch.core.anchor_pool import AnchorPool
 from repro_torch.core.parser import TokenStreamParser as TParser
 from repro_torch.launch import serve as tserve
+from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import build_model as t_build
@@ -77,8 +87,102 @@ def moe_twin():
     return _carry(MOE)
 
 
-def _close(jax_out, torch_out):
-    np.testing.assert_allclose(torch_out.numpy(), np.asarray(jax_out), **TOL)
+def _close(jax_out, torch_out, padding=None):
+    """Equal to ``TOL``; where ``padding`` (a mask of the pool's ``[P,
+    page]`` or a cache's ``[B, max_len]`` slots) is given, at every slot
+    but those."""
+    j, t = np.asarray(jax_out), torch_out.numpy()
+    if padding is not None:
+        j, t = j[:, ~padding], t[:, ~padding]
+    np.testing.assert_allclose(t, j, **TOL)
+
+
+def _holds_every_row(cfg) -> float:
+    """The capacity factor at which an expert's capacity is a call's
+    every row: ``t * top_k / padded_experts * factor = t``."""
+    return cfg.padded_experts / cfg.top_k
+
+
+def _jax_dropless(monkeypatch):
+    """From here on the JAX package's MoE layers run at
+    :func:`_holds_every_row`'s capacity, and every ``router_topk`` call
+    records its expert ids by a debug callback (inside jit too): read them
+    with :func:`_jax_dropped`."""
+    seen = []
+    route, ffn = jmoe.router_topk, jmoe.moe_ffn
+
+    def recorded(logits, cfg):
+        gates, ids = route(logits, cfg)
+        jax.debug.callback(lambda a: seen.append(np.asarray(a)), ids)
+        return gates, ids
+
+    def dropless(p, x, cfg, *, capacity_factor=1.25, return_aux=False):
+        return ffn(p, x, cfg, capacity_factor=_holds_every_row(cfg),
+                   return_aux=return_aux)
+
+    monkeypatch.setattr(jmoe, "router_topk", recorded)
+    monkeypatch.setattr(jmoe, "moe_ffn", dropless)
+    return seen
+
+
+def _jax_dropped(seen, cfg) -> int:
+    """Entries the reference's capacity dispatch dropped in the calls of
+    ``seen``: in each, those past an expert's ``cap`` slots (its
+    ``_dispatch_compute_combine``, ``repro/models/moe.py`` l.71-86)."""
+    jax.effects_barrier()
+    assert seen, "no MoE layer ran"
+    factor = _holds_every_row(cfg)
+    dropped = 0
+    for ids in seen:
+        t = ids.shape[0]
+        cap = min(max(8, math.ceil(t * cfg.top_k / cfg.padded_experts
+                                   * factor)), t)
+        per = np.bincount(ids.reshape(-1), minlength=cfg.padded_experts)
+        dropped += int(np.maximum(per - cap, 0).sum())
+    return dropped
+
+
+class _PaddingSlots:
+    """The pool's ``[P, page]`` slots whose last write came from a group
+    prefill's padding (a position at or past its row's length), kept from
+    the write indices the port's paths compute."""
+
+    def __init__(self, pages: int, page: int):
+        self.mask = np.zeros((pages, page), bool)
+
+    def prefill(self, seq_lens, tables, *coords):
+        idx = tattn.prefill_write_index(torch.as_tensor(tables),
+                                        *map(torch.as_tensor, coords))
+        if idx.kept:
+            s = coords[0].shape[1]
+            pad = (np.arange(s)[None, :]
+                   >= np.asarray(seq_lens)[:, None]).reshape(-1)
+            self.mask[idx.pid.numpy(), idx.off.numpy()] = pad[idx.src.numpy()]
+
+    def decode(self, tables, page_pos, seq_lens, wsh, wsl):
+        idx = tattn.decode_write_index(*map(torch.as_tensor, (
+            tables, page_pos, seq_lens, wsh, wsl)), self.mask.shape[1])
+        if idx.kept:
+            self.mask[idx.pid.numpy(), idx.off.numpy()] = False
+
+    def watch(self, monkeypatch, tm):
+        """Keep the mask from every ``prefill`` / ``decode_step`` of
+        ``tm`` from here on."""
+        prefill, decode = tm.prefill, tm.decode_step
+
+        def p(params, tokens, seq_lens, pool, tables, *coords, **kw):
+            self.prefill(seq_lens, tables, *coords)
+            return prefill(params, tokens, seq_lens, pool, tables, *coords,
+                           **kw)
+
+        def d(params, tokens, seq_lens, pool, tables, page_pos, wsh, wsl,
+              **kw):
+            self.decode(tables, page_pos, seq_lens, wsh, wsl)
+            return decode(params, tokens, seq_lens, pool, tables, page_pos,
+                          wsh, wsl, **kw)
+
+        monkeypatch.setattr(tm, "prefill", p)
+        monkeypatch.setattr(tm, "decode_step", d)
 
 
 def _jit_kw():
@@ -93,12 +197,14 @@ def _jit_kw():
 # TransformerLM: the Libra paths and the standard stack's
 # ---------------------------------------------------------------------------
 
-def test_prefill_and_decode_match_jax(twin):
-    """Two prompts of 13 and 20 tokens (padded to 24: the MoE layers route
-    the padding too), then three decode steps with the write page of each
-    step grown as the engine grows it."""
+def test_prefill_and_decode_match_jax(twin, monkeypatch):
+    """Two prompts of 13 and 20 tokens (padded to 24: the reference's MoE
+    layers route the padding too, the port's do not), then three decode
+    steps with the write page of each step grown as the engine grows it."""
     arch, jm, jp, tm, tp = twin
     cfg = tm.cfg
+    moe = cfg.family == "moe"
+    seen = _jax_dropless(monkeypatch)
     rng = np.random.default_rng(7)
     lens = [13, 20]
     prompts = [rng.integers(1, cfg.vocab_size - 1, n) for n in lens]
@@ -113,14 +219,17 @@ def test_prefill_and_decode_match_jax(twin):
     kw = _jit_kw()
     j_pool = jnp.zeros(jm.kv_pool_shape(alloc.total_pages), jnp.float32)
     t_pool = torch.zeros(tm.kv_pool_shape(alloc.total_pages))
+    slots = _PaddingSlots(alloc.total_pages, PAGE)
+    padding = slots.mask if moe else None
 
     j_first, j_pool = jax.jit(partial(jm.prefill, **kw))(
         jp, tokens, seq_lens, j_pool, tables, *tc)
     t_first = tm.prefill(tp, torch.from_numpy(tokens),
                          torch.from_numpy(seq_lens), t_pool,
                          torch.from_numpy(tables), *map(torch.from_numpy, tc))
+    slots.prefill(seq_lens, tables, *tc)
     assert t_first.tolist() == np.asarray(j_first).tolist()
-    _close(j_pool, t_pool)
+    _close(j_pool, t_pool, padding)
 
     j_dec = jax.jit(partial(jm.decode_step, **kw))
     cur = np.asarray(j_first).astype(np.int32)
@@ -131,15 +240,23 @@ def test_prefill_and_decode_match_jax(twin):
         j_next, j_pool, _ = j_dec(jp, args[0], args[1], j_pool, *args[2:])
         t_next = tm.decode_step(tp, *map(torch.from_numpy, args[:2]), t_pool,
                                 *map(torch.from_numpy, args[2:]))
+        slots.decode(*args[2:4], args[1], *args[4:])
         assert t_next.tolist() == np.asarray(j_next).tolist(), (arch, step)
-        _close(j_pool, t_pool)
+        _close(j_pool, t_pool, padding)
         cur = np.asarray(j_next).astype(np.int32)
+    if moe:
+        assert _jax_dropped(seen, cfg) == 0
+        assert slots.mask.any()         # the padding's slots are left out
 
 
-def test_prefill_and_decode_dense_match_jax(twin):
+def test_prefill_and_decode_dense_match_jax(twin, monkeypatch):
     """The standard stack's paths: prompts of 5 and 13 tokens into a
-    24-token cache, then three decode steps' full logits and caches."""
+    24-token cache, then three decode steps' full logits and caches (under
+    ``moe``, at every position but the padding's that no step wrote
+    again)."""
     _arch, jm, jp, tm, tp = twin
+    moe = tm.cfg.family == "moe"
+    seen = _jax_dropless(monkeypatch)
     rng = np.random.default_rng(11)
     lens = [5, 13]
     tokens = np.stack([np.pad(rng.integers(1, tm.cfg.vocab_size - 1, n),
@@ -150,8 +267,11 @@ def test_prefill_and_decode_dense_match_jax(twin):
         p, t, s, max_len, compute_dtype=jnp.float32))(jp, tokens, seq_lens)
     t_first, t_kv = tm.prefill_dense(tp, torch.from_numpy(tokens),
                                      torch.from_numpy(seq_lens), max_len)
+    pos = np.arange(max_len)[None, :]
+    padding = ((pos >= seq_lens[:, None]) & (pos < tokens.shape[1])
+               if moe else None)
     assert t_first.tolist() == np.asarray(j_first).tolist()
-    _close(j_kv, t_kv)
+    _close(j_kv, t_kv, padding)
     j_dec = jax.jit(lambda p, t, s, c: jm.decode_step_dense(
         p, t, s, c, compute_dtype=jnp.float32))
     j_cache, t_cache = j_kv, t_kv
@@ -161,75 +281,135 @@ def test_prefill_and_decode_dense_match_jax(twin):
         j_logits, j_cache = j_dec(jp, cur, pos, j_cache)
         t_logits, t_cache = tm.decode_step_dense(
             tp, torch.from_numpy(cur), torch.from_numpy(pos), t_cache)
+        if moe:
+            padding[np.arange(len(pos)), pos] = False
         _close(j_logits, t_logits)
-        _close(j_cache, t_cache)
+        _close(j_cache, t_cache, padding)
         cur = np.asarray(j_logits).argmax(-1).astype(np.int32)
         assert t_logits.argmax(-1).tolist() == cur.tolist()
+    if moe:
+        assert _jax_dropped(seen, tm.cfg) == 0
 
 
 def test_moe_layers_route_every_row_in_one_call(moe_twin, monkeypatch):
-    """One ``moe_ffn`` call a layer, over all ``B*S`` rows of a prefill
-    (padding included) and all ``B`` rows of a decode step, at capacity
-    factor 2.0."""
+    """One dropless call a layer: over all ``B*S`` rows of a prefill, of
+    which the real ones (``sum(seq_lens)``) are routed and the padding is
+    not, and over all ``B`` rows of a decode step; the capacity dispatch
+    never runs on the serving paths, and the launches of the experts are
+    one a call."""
     _arch, _jm, _jp, tm, tp = moe_twin
-    calls = []
-    inner = tmoe.moe_ffn
+    calls, experts = [], []
+    inner, grouped = tmoe.moe_ffn_dropless, tmoe.ops.moe_experts
 
     def counted(p, x, cfg, **kw):
-        calls.append((tuple(x.shape), kw.get("capacity_factor")))
+        valid = kw.get("valid")
+        calls.append((tuple(x.shape),
+                      None if valid is None else int(valid.sum())))
         return inner(p, x, cfg, **kw)
 
-    monkeypatch.setattr(tmoe, "moe_ffn", counted)
+    def launched(xs, offsets, *args, **kw):
+        experts.append(int(offsets[-1]))
+        return grouped(xs, offsets, *args, **kw)
+
+    def refused(*a, **kw):
+        raise AssertionError("capacity dispatch on a serving path")
+
+    monkeypatch.setattr(tmoe, "moe_ffn_dropless", counted)
+    monkeypatch.setattr(tmoe.ops, "moe_experts", launched)
+    monkeypatch.setattr(tmoe, "moe_ffn", refused)
     b, s, max_len = 3, 11, 16
     tokens = torch.arange(1, b * s + 1, dtype=torch.int32).reshape(b, s)
     seq_lens = torch.tensor([11, 4, 7], dtype=torch.int32)
     _first, kv = tm.prefill_dense(tp, tokens, seq_lens, max_len)
     tm.decode_step_dense(tp, tokens[:, 0], seq_lens, kv)
-    d, layers = tm.cfg.d_model, tm.cfg.num_layers
-    assert calls == [((b * s, d), 2.0)] * layers + [((b, d), 2.0)] * layers
+    c = tm.cfg
+    d, layers, real = c.d_model, c.num_layers, int(seq_lens.sum())
+    assert calls == [((b * s, d), real)] * layers + [((b, d), None)] * layers
+    width = c.top_k + c.num_shared_experts    # entries a routed row makes
+    assert experts == [real * width] * layers + [b * width] * layers
 
 
 # ---------------------------------------------------------------------------
 # the engines
 # ---------------------------------------------------------------------------
 
-def _assert_same(j, t, j_reqs, t_reqs):
+def _assert_same(j, t, j_reqs, t_reqs, padding=None):
     assert [r.output for r in t_reqs] == [r.output for r in j_reqs]
     assert dataclasses.asdict(t.stats) == dataclasses.asdict(j.stats)
     if isinstance(j, jengine.LibraEngine):
         assert dataclasses.asdict(t.stack.counters) == \
             dataclasses.asdict(j.stack.counters)
-        _close(j.pool.pool, t.pool.pool)
+        _close(j.pool.pool, t.pool.pool, padding)
         for e in (j, t):                 # every page but the parking page
             assert e.pool.alloc.free_pages == e.pool.alloc.total_pages - 1
     else:
         assert t.max_batch == j.max_batch
-        _close(j.cache, t.cache)
+        _close(j.cache, t.cache, padding)
 
 
-def _serve(mp, name, n_req, gen, seed, **kw):
+def _cache_padding(t, t_reqs, widths):
+    """A baseline engine's ``[max_batch, max_len]`` cache slots whose last
+    write came from a group prefill's padding: each slot's last request
+    wrote its group's width, and its decode steps wrote its positions up
+    to its length less one (``widths``: each prefill's rows and width, in
+    order; groups are admitted in submission order)."""
+    last = {}
+    reqs = iter(t_reqs)
+    for rows, width in widths:
+        for _ in range(rows):
+            r = next(reqs)
+            last[r.slot] = (len(r.prompt) + len(r.output) - 1, width)
+    mask = np.zeros((t.max_batch, t.max_len), bool)
+    for slot, (end, width) in last.items():
+        mask[slot, end:width] = True
+    return mask
+
+
+def _serve(mp, name, n_req, gen, seed, monkeypatch, **kw):
     _arch, jm, jp, tm, tp = mp
+    moe = tm.cfg.family == "moe"
+    seen = _jax_dropless(monkeypatch)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, 250, rng.integers(6, 20)) for _ in range(n_req)]
     engs = (getattr(jengine, CLASSES[name])(
                 jm, jp, parser=JParser(header_len=4), **kw),
             getattr(tengine, CLASSES[name])(
                 tm, tp, parser=TParser(header_len=4), device="cpu", **kw))
+    slots, widths = None, []
+    if moe and name == "libra":
+        slots = _PaddingSlots(engs[1].pool.alloc.total_pages, PAGE)
+        slots.watch(monkeypatch, tm)
+    elif moe:
+        dense = tm.prefill_dense
+
+        def recorded(params, tokens, seq_lens, max_len):
+            widths.append(tuple(tokens.shape))
+            return dense(params, tokens, seq_lens, max_len)
+
+        monkeypatch.setattr(tm, "prefill_dense", recorded)
     reqs = [[e.submit(p, max_new_tokens=gen) for p in prompts] for e in engs]
     for e in engs:
         e.run()
-    _assert_same(*engs, *reqs)
+    padding = None
+    if slots is not None:
+        padding = slots.mask
+    elif moe:
+        padding = _cache_padding(engs[1], reqs[1], widths)
+    _assert_same(*engs, *reqs, padding)
     assert all(len(r.output) == gen for r in reqs[1])
+    if moe:
+        assert _jax_dropped(seen, tm.cfg) == 0 and padding.any()
 
 
-def test_libra_engine_matches_jax(twin):
+def test_libra_engine_matches_jax(twin, monkeypatch):
     """Five requests over two slots: waves of admission, idle slots on the
     parking page."""
-    _serve(twin, "libra", 5, 3, 5, max_batch=2, max_len=48, page_size=PAGE)
+    _serve(twin, "libra", 5, 3, 5, monkeypatch, max_batch=2, max_len=48,
+           page_size=PAGE)
 
 
 @pytest.mark.parametrize("name", ["standard", "copier", "static"])
-def test_baseline_engines_serve_moe_as_jax(moe_twin, name):
+def test_baseline_engines_serve_moe_as_jax(moe_twin, name, monkeypatch):
     """qwen2-moe under the three baseline stacks: 4 requests over 2 slots
     (``static``: a budget of 2 slots)."""
     cfg = moe_twin[3].cfg
@@ -237,7 +417,7 @@ def test_baseline_engines_serve_moe_as_jax(moe_twin, name):
     kw = (dict(memory_budget=2 * cfg.num_layers * max_len * 2
                * cfg.num_kv_heads * cfg.head_dim * 4)
           if name == "static" else dict(max_batch=2))
-    _serve(moe_twin, name, 4, 3, 21, max_len=max_len, **kw)
+    _serve(moe_twin, name, 4, 3, 21, monkeypatch, max_len=max_len, **kw)
 
 
 # ---------------------------------------------------------------------------

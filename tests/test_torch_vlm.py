@@ -11,7 +11,6 @@ the prefix-inclusive positions. Tokens must be identical, the pool within
 prefill, prefix-inclusive at decode) and a fault of the reference the
 port carries: the baseline ``prefill_dense`` takes no image (F4).
 """
-import dataclasses
 from functools import lru_cache, partial
 
 import jax
@@ -19,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from _configs import assert_config_matches_jax
 
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
@@ -73,7 +74,7 @@ def _jit_kw(b=2):
 def test_config_and_param_count_match_jax():
     for get in ("get_config", "get_reduced"):
         j, t = getattr(jconfigs, get)(ARCH), getattr(tconfigs, get)(ARCH)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert_config_matches_jax(j, t)
     assert tconfigs.get_config(ARCH).param_count() == \
         jconfigs.get_config(ARCH).param_count() == INTERNVL2_PARAMS
     tm = t_build(tconfigs.get_reduced(ARCH))
